@@ -1,0 +1,23 @@
+"""Device-side (PyTorch) bulk kernels and their host helpers.
+
+The port of metagenomics_tpu/ops: the numpy ingest half of packing, the
+candidate verification ops, the window-hash kernel and the device overlap
+pipeline (imported by module: ops.device_overlap, ops.window_hash).
+"""
+
+from .packing import (
+    PAD_CODE,
+    ascii_to_codes,
+    codes_to_ascii,
+    pack_sort_limbs,
+)
+from .overlap import verify_candidates, CandidateBatch
+
+__all__ = [
+    "PAD_CODE",
+    "ascii_to_codes",
+    "codes_to_ascii",
+    "pack_sort_limbs",
+    "verify_candidates",
+    "CandidateBatch",
+]
