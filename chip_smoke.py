@@ -12,21 +12,27 @@ Phases (any failure exits non-zero; nothing is caught):
      version (window_hashes_torch) on the card at the reference's test
      shapes, a long-read shape and both l extremes (phase 4 repeats the
      check on its first 4096 dataset rows and on its full code matrix);
-  3. golden configs: the port's CLI with the device engine on cuda writes
-     all 12 artifacts byte-equal to golden/out/<cfg>/ (and the normalized
-     log equal to the reference log) for the nine golden configs;
+  3. golden configs: the port's CLI on cuda with the device, hybrid and
+     host engines writes all 12 artifacts byte-equal to golden/out/<cfg>/
+     (and the normalized log equal to the reference log) for the nine
+     golden configs; prints which configs took the hybrid path and which
+     fell back to the device pipeline;
   4. real size: 1,000,000 single-end 100 bp reads made from a seed (20x
-     coverage of two genomes, 3 Mb and 2 Mb) go through the CLI with the
-     device engine on cuda and with the native C++ engine; all 12 artifacts
-     must be byte-equal.  Checks the kernel on that data set, then prints
-     each phase's time, the kernel's and the
-     plain version's time at the main path's shape and the peak device
-     memory, each beside the card's name and power limit.
+     coverage of two genomes, 3 Mb and 2 Mb) go through the CLI on cuda
+     with the `auto` engine (which must resolve to hybrid on one card),
+     the device engine and the host engine, and with the native C++
+     engine; all 12 artifacts of each must be byte-equal to the native
+     engine's.  Checks the kernel on that data set, then prints each run's
+     phase times and peak device memory, the kernel's and the plain
+     version's time at the main path's shape, each beside the card's name
+     and power limit.
 
-The kernel's launch counter is reset just before the device run of phase 4
-and read just after it; the run fails if the kernel was never launched.
-The last two lines are the kernels record and {"ok": true, "device": ...}.
-Exits non-zero without a result when no CUDA device is available.
+The kernel's launch counter is set to 0 just before each run of the CLI
+and read just after it; a device or hybrid run (one that did not fall
+back) that never launched the kernel fails the smoke.  The main path is
+phase 4's `auto` (hybrid) run.  The last two lines are the kernels record
+and {"ok": true, "device": ...}.  Exits non-zero without a result when no
+CUDA device is available.
 """
 
 import contextlib
@@ -188,28 +194,43 @@ def diff_artifacts(dir_a, prefix_a, dir_b, prefix_b):
 
 
 def golden_phase(window_hash, tmp):
-    log("== phase 3: golden configs, device engine on cuda")
+    log("== phase 3: golden configs, device, hybrid and host engines on "
+        "cuda")
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from logutil import normalize_log
-    before = window_hash.launches
-    for name, args in GOLDEN_CONFIGS.items():
-        wd = os.path.join(tmp, "golden_" + name)
-        t0 = time.time()
-        _, text = run_cli(args, wd, "device")
-        dt = time.time() - t0
-        bad = diff_artifacts(wd, "t_", os.path.join(GOLDEN, "out", name),
-                             "g_")
-        ref = open(os.path.join(GOLDEN, "out", name, "log.txt")).read()
-        log_ok = normalize_log(text) == normalize_log(ref)
-        log("  %-10s %6.2f s  12 artifacts %s, log %s"
-            % (name, dt, "byte-equal" if not bad else "DIFFER %s" % bad,
-               "equal" if log_ok else "DIFFERS"))
-        if bad or not log_ok:
-            raise SystemExit("golden config %s differs on the card" % name)
-    grown = window_hash.launches - before
-    log("  window_hash launches in phase 3: %d" % grown)
-    if grown <= 0:
-        raise SystemExit("the golden runs never launched the kernel")
+    launched = {}
+    took = {}
+    for engine in ("device", "hybrid", "host"):
+        launched[engine] = 0
+        for name, args in GOLDEN_CONFIGS.items():
+            wd = os.path.join(tmp, "golden_%s_%s" % (engine, name))
+            t0 = time.time()
+            window_hash.launches = 0
+            asm, text = run_cli(args, wd, engine)
+            n = window_hash.launches
+            dt = time.time() - t0
+            bad = diff_artifacts(wd, "t_", os.path.join(GOLDEN, "out", name),
+                                 "g_")
+            ref = open(os.path.join(GOLDEN, "out", name, "log.txt")).read()
+            log_ok = normalize_log(text) == normalize_log(ref)
+            log("  %-6s %-10s %6.2f s  ran %-6s  window_hash launches %2d  "
+                "12 artifacts %s, log %s"
+                % (engine, name, dt, asm.engine, n,
+                   "byte-equal" if not bad else "DIFFER %s" % bad,
+                   "equal" if log_ok else "DIFFERS"))
+            if bad or not log_ok:
+                raise SystemExit("golden config %s differs on the card with "
+                                 "the %s engine" % (name, engine))
+            if asm.engine in ("device", "hybrid") and n <= 0:
+                raise SystemExit("the %s run of %s never launched the "
+                                 "kernel" % (asm.engine, name))
+            if engine == "hybrid":
+                took.setdefault(asm.engine, []).append(name)
+            launched[engine] += n
+    log("  hybrid path taken by: %s" % ", ".join(took.get("hybrid", [])))
+    log("  fell back to the device pipeline: %s"
+        % (", ".join(took.get("device", [])) or "none"))
+    log("  window_hash launches in phase 3: %s" % launched)
 
 
 def write_reads(path):
@@ -257,6 +278,26 @@ def time_kernel(torch, window_hash, codes, l, reps=10):
     return total["cuda"] / (2 * reps), total["plain"] / (2 * reps)
 
 
+def engine_run(torch, window_hash, args, workdir, engine, card):
+    """One CLI run on cuda with the launch counter and the peak device
+    memory reset just before it and read just after; prints its phase
+    times.  Returns (Assembler, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    window_hash.launches = 0
+    asm, _ = run_cli(args, workdir, engine)
+    torch.cuda.synchronize()
+    launches = window_hash.launches
+    peak = torch.cuda.max_memory_allocated()
+    log("  %s engine (ran %s) [%s]: %d unique reads, window_hash launches "
+        "%d, peak device memory %d bytes"
+        % (engine, asm.engine, card, asm.dataset.number_of_unique_reads,
+           launches, peak))
+    for k, v in asm.timings.items():
+        log("    %-32s %.6f s" % (k, v))
+    return asm, launches
+
+
 def real_size_phase(torch, window_hash, tmp, card):
     log("== phase 4: real size, %d reads of %d bp" % (REAL_READS, REAL_LEN))
     path = os.path.join(tmp, "reads_1m.fasta")
@@ -266,34 +307,36 @@ def real_size_phase(torch, window_hash, tmp, card):
         % (n, time.time() - t0, REAL_SEED))
     args = ["-se", "1", path]
 
-    dev_dir = os.path.join(tmp, "real_device")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    window_hash.launches = 0
-    asm, _ = run_cli(args, dev_dir, "device")
-    torch.cuda.synchronize()
-    launches = window_hash.launches
-    peak = torch.cuda.max_memory_allocated()
-    ds = asm.dataset
-    log("  device engine on cuda [%s]: %d unique reads, window_hash "
-        "launches %d, peak device memory %d bytes"
-        % (card, ds.number_of_unique_reads, launches, peak))
-    for k, v in asm.timings.items():
-        log("    %-32s %.6f s" % (k, v))
+    # the main path: `auto` on one card is the hybrid engine
+    asm, launches = engine_run(torch, window_hash, args,
+                               os.path.join(tmp, "real_auto"), "auto", card)
+    if asm.engine != "hybrid":
+        raise SystemExit("auto on one card ran %s, not hybrid" % asm.engine)
     if launches <= 0:
         raise SystemExit("the main path never launched the kernel")
+    by_path = {"hybrid": launches}
+    ds = asm.dataset
+    _, by_path["device"] = engine_run(torch, window_hash, args,
+                                      os.path.join(tmp, "real_device"),
+                                      "device", card)
+    if by_path["device"] <= 0:
+        raise SystemExit("the device engine never launched the kernel")
+    engine_run(torch, window_hash, args, os.path.join(tmp, "real_host"),
+               "host", card)
 
     nat_dir = os.path.join(tmp, "real_native")
     nasm, _ = run_cli(args, nat_dir, "native")
     log("  native engine [host CPU of %s]:" % card)
     for k, v in nasm.timings.items():
         log("    %-32s %.6f s" % (k, v))
-    bad = diff_artifacts(dev_dir, "t_", nat_dir, "t_")
-    log("  12 artifacts device vs native: %s"
-        % ("byte-equal" if not bad else "DIFFER %s" % bad))
-    if bad:
-        raise SystemExit("1M-read artifacts differ between engines: %s"
-                         % bad)
+    for engine in ("auto", "device", "host"):
+        bad = diff_artifacts(os.path.join(tmp, "real_" + engine), "t_",
+                             nat_dir, "t_")
+        log("  12 artifacts %s vs native: %s"
+            % (engine, "byte-equal" if not bad else "DIFFER %s" % bad))
+        if bad:
+            raise SystemExit("1M-read artifacts differ between the %s and "
+                             "the native engine: %s" % (engine, bad))
 
     l = MIN_OVERLAP - 1
     # the first 4096 rows with codes masked to 2 bits: the input the TPU
@@ -310,7 +353,8 @@ def real_size_phase(torch, window_hash, tmp, card):
         "%.6f ms" % (codes.shape[0], codes.shape[1], l, card, ms,
                      plain_ms))
     return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "paths": sorted(by_path),
+            "launches_by_path": by_path}
 
 
 def main():

@@ -14,16 +14,33 @@ import time
 from metagenomics_tpu.config import AssemblerConfig
 from .dataset import Dataset
 from .graph import OverlapGraph
+from .index import OverlapIndex
 from .utils import PhaseTimer
 
 # engines of the reference that the port does not run yet, with the
 # ROADMAP item that ports each
 _NOT_PORTED = {
-    "hybrid": "ROADMAP.md section 1 item 3 (build_hybrid)",
-    "host": "ROADMAP.md section 1 item 5 (host engine)",
     "sharded": "ROADMAP.md section 1 item 7 (parallel/* over "
                "torch.distributed)",
 }
+
+
+def auto_engine(device_type, n_cards):
+    """The engine `auto` picks for the pipeline's device type and the
+    number of visible cards: the JAX package's rule
+    (metagenomics_tpu/assembler.py:63-77) with the card in the TPU's place.
+
+    A card puts the device to work: the hybrid engine (a native CPU scan of
+    reads [1, a) concurrent with the device shard [a, n]), which falls back
+    to the device pipeline itself where it does not apply.  Several cards
+    would take the sharded engine, which is not ported yet (ROADMAP
+    section 1 item 7), so meanwhile they run hybrid on the current card.
+    Any other device takes the native engine; under `auto` the device
+    pipeline runs if the native engine is unavailable.
+    """
+    if device_type == "cuda" and n_cards >= 1:
+        return "hybrid"
+    return "native"
 
 
 class Assembler:
@@ -31,6 +48,7 @@ class Assembler:
         self.cfg = config
         self.log = log
         self._timer = PhaseTimer(log=log)
+        self.engine = None
 
     @property
     def timings(self):
@@ -47,13 +65,19 @@ class Assembler:
     def _build(self, graph):
         """Run the construction phase with the selected overlap engine.
 
-        Engines (env MGTPU_OVERLAP_ENGINE or config):
-          device  — the torch overlap pipeline (ops/device_overlap.py) on
-                    the device named by MGTPU_TORCH_DEVICE (cuda by
-                    default), canonical stream + native replay; `auto`
-                    means device
+        Engines (env MGTPU_OVERLAP_ENGINE or config), each on the device
+        named by MGTPU_TORCH_DEVICE (cuda by default):
+          device  — the torch overlap pipeline (ops/device_overlap.py),
+                    canonical stream + native replay
+          hybrid  — device shard + concurrent native CPU shard with exact
+                    canonical merge (graph/build.py build_hybrid)
+          host    — host join (index.py) + device verify
           native  — full C++ engine (index/scan/verify/BFS) on the host
-        Both produce byte-identical graphs (tests/test_torch_golden.py).
+          auto    — the JAX package's choice (auto_engine)
+        All produce byte-identical graphs (tests/test_torch_golden.py,
+        tests/test_torch_golden_host.py, tests/test_torch_engines.py).
+        The engine that built the graph is left in self.engine ("device"
+        when hybrid fell back to the device pipeline).
         """
         from .utils.timing import phase_clock
         with phase_clock("buildOverlapGraphFromHashTable", log=self.log,
@@ -62,31 +86,55 @@ class Assembler:
 
     def _build_engine(self, graph):
         import os
+        import torch
         from metagenomics_tpu import native
+        from .ops.device_overlap import DeviceOverlapPipeline, torch_device
         engine = os.environ.get("MGTPU_OVERLAP_ENGINE",
                                 getattr(self.cfg, "overlap_engine", "auto"))
-        if engine == "auto":
-            engine = "device"
         if engine in _NOT_PORTED:
             raise NotImplementedError(
                 "overlap engine %r is not ported to torch yet: %s"
                 % (engine, _NOT_PORTED[engine]))
-        if engine == "native":
-            if os.environ.get("MGTPU_NO_NATIVE") or \
-                    not graph.build_full_native():
-                raise RuntimeError("native overlap engine unavailable")
-            return
-        if engine != "device":
+        if engine not in ("auto", "native", "device", "hybrid", "host"):
             raise ValueError("unknown overlap engine %r" % engine)
-        from .ops.device_overlap import DeviceOverlapPipeline, torch_device
+        auto = engine == "auto"
+        if auto:
+            device = torch_device()
+            engine = auto_engine(device.type, torch.cuda.device_count()
+                                 if device.type == "cuda" else 0)
+        if engine == "native":
+            if not os.environ.get("MGTPU_NO_NATIVE") and \
+                    graph.build_full_native():
+                self.engine = "native"
+                return
+            if not auto:
+                raise RuntimeError("native overlap engine unavailable")
+            engine = "device"
+        # build_hybrid constructs its pipeline without a device argument
+        # (graph/build.py is a verbatim copy), so there the pipeline reads
+        # MGTPU_TORCH_DEVICE itself, as torch_device() does here
         device = torch_device()
         if device.type == "cuda" and native.get_lib() is None:
             # the replay would silently run in pure Python otherwise
-            raise RuntimeError("the device engine on cuda needs the native "
-                               "replay library, which failed to build")
-        pipeline = DeviceOverlapPipeline(self.dataset, self.cfg.min_overlap,
-                                         device=device)
-        graph.build_from_pipeline(pipeline)
+            raise RuntimeError("the %s engine on cuda needs the native "
+                               "replay library, which failed to build"
+                               % engine)
+        if engine == "hybrid":
+            # CPU scan of reads [1, a) concurrent with the device shard
+            # [a, n]; False where it does not apply (fewer than 1024
+            # reads, reads too long for one packed word), and the device
+            # pipeline runs instead
+            if graph.build_hybrid():
+                self.engine = "hybrid"
+                return
+            engine = "device"
+        if engine == "host":
+            graph.build_from_index(OverlapIndex(self.dataset,
+                                                self.cfg.min_overlap))
+        else:
+            graph.build_from_pipeline(DeviceOverlapPipeline(
+                self.dataset, self.cfg.min_overlap, device=device))
+        self.engine = engine
 
     def run(self):
         cfg = self.cfg

@@ -1,7 +1,8 @@
 """Device-side (PyTorch) bulk kernels and their host helpers.
 
-The port of metagenomics_tpu/ops: the numpy ingest half of packing, the
-candidate verification ops, the window-hash kernel and the device overlap
+The port of metagenomics_tpu/ops: packing (the numpy ingest half and the
+torch device half), the candidate verification ops, the window packing of
+the host engine (ops.kmer), the window-hash kernel and the device overlap
 pipeline (imported by module: ops.device_overlap, ops.window_hash).
 """
 
@@ -9,6 +10,9 @@ from .packing import (
     PAD_CODE,
     ascii_to_codes,
     codes_to_ascii,
+    reverse_complement_codes,
+    canonicalize_codes,
+    qc_mask,
     pack_sort_limbs,
 )
 from .overlap import verify_candidates, CandidateBatch
@@ -17,6 +21,9 @@ __all__ = [
     "PAD_CODE",
     "ascii_to_codes",
     "codes_to_ascii",
+    "reverse_complement_codes",
+    "canonicalize_codes",
+    "qc_mask",
     "pack_sort_limbs",
     "verify_candidates",
     "CandidateBatch",

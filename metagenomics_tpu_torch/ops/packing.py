@@ -1,15 +1,21 @@
-"""Host (numpy) half of metagenomics_tpu/ops/packing.py.
+"""Base packing, reverse complement, canonicalization and QC.
 
-Rank codes (A=0, C=1, G=2, T=3, PAD=4 past each read's length) and the
-numpy ingest kernels the Dataset runs: ASCII <-> code maps, reverse
-complement, canonicalization, QC and the lexicographic sort limbs.  The
-bodies are verbatim copies of the reference's host functions
-(tests/test_torch_host_copies.py keeps them equal).  The device twins
-(reverse_complement_codes, canonicalize_codes, qc_mask) are not ported:
-ingest never calls them.
+Port of metagenomics_tpu/ops/packing.py.  Rank codes (A=0, C=1, G=2, T=3,
+PAD=4 past each read's length) and two halves:
+
+* the numpy ingest kernels the Dataset runs (ASCII <-> code maps, the
+  *_np twins, the lexicographic sort limbs): verbatim copies of the
+  reference's host functions (tests/test_torch_host_copies.py keeps them
+  equal);
+* the device kernels (reverse_complement_codes, _lex_less,
+  canonicalize_codes, _qc_kernel, qc_mask) as torch ops on the device of
+  the tensors they are given.  JAX's gathers clamp and torch's raise, so
+  the indices are clamped explicitly; torch.argmax takes no bool, so the
+  first difference is found on uint8.  Ingest does not call them.
 """
 
 import numpy as np
+import torch
 
 PAD_CODE = np.uint8(4)
 
@@ -31,6 +37,75 @@ def ascii_to_codes(ascii_arr: np.ndarray, lengths: np.ndarray) -> np.ndarray:
 def codes_to_ascii(codes: np.ndarray, length: int) -> bytes:
     """Decode one row of rank codes back to an ASCII byte string."""
     return _CODE_TO_ASCII[np.asarray(codes[:length], dtype=np.uint8)].tobytes()
+
+
+def reverse_complement_codes(codes, lengths):
+    """Per-row reverse complement honouring each row's length, on the
+    device of `codes` (uint8 [N, Lmax]); `lengths` is an integer tensor.
+
+    rc[i, k] = 3 - codes[i, L_i - 1 - k] for k < L_i, PAD_CODE otherwise.
+    (complement of rank codes is 3 - c: A<->T, C<->G; reference semantics at
+    MetaGenomics/Read.cpp:115-127.)
+    """
+    n, lmax = codes.shape
+    k = torch.arange(lmax, device=codes.device)[None, :]
+    ln = lengths.to(codes.device, torch.int64)[:, None]
+    src = torch.clamp(ln - 1 - k, 0, lmax - 1)
+    gathered = torch.gather(codes, 1, src)
+    return torch.where(k < ln, 3 - gathered, int(PAD_CODE)).to(torch.uint8)
+
+
+def _lex_less(a, b):
+    """Row-wise lexicographic a < b for equal-shape padded code tensors."""
+    neq = a != b
+    # index of first difference; lmax if equal (argmax returns the first
+    # maximal index, and takes no bool)
+    lmax = a.shape[1]
+    first = torch.where(neq.any(dim=1), torch.argmax(neq.to(torch.uint8),
+                                                     dim=1), lmax)
+    idx = torch.clamp(first, 0, lmax - 1)[:, None]
+    av = torch.gather(a, 1, idx)[:, 0]
+    bv = torch.gather(b, 1, idx)[:, 0]
+    return (first < lmax) & (av < bv)
+
+
+def canonicalize_codes(codes, lengths):
+    """Return (canonical_codes, was_reversed): the lexicographically smaller
+    of each read and its reverse complement (reference: Dataset.cpp:164-167).
+
+    Matches the reference's tie handling: if read == rc the *reverse* is
+    stored (strict less-than keeps the forward only when forward < rc).
+    """
+    rc = reverse_complement_codes(codes, lengths)
+    fwd_less = _lex_less(codes, rc)
+    out = torch.where(fwd_less[:, None], codes, rc)
+    return out.to(torch.uint8), ~fwd_less
+
+
+def _qc_kernel(codes, lengths, thresholds, min_overlap):
+    valid_pos = (torch.arange(codes.shape[1], device=codes.device)[None, :]
+                 < lengths[:, None])
+    ok_chars = torch.where(valid_pos, codes <= 3, True).all(dim=1)
+    counts = torch.stack(
+        [(valid_pos & (codes == c)).sum(dim=1) for c in range(4)], dim=1)
+    not_lowcomp = (counts < thresholds[:, None]).all(dim=1)
+    return ok_chars & not_lowcomp & (lengths > min_overlap)
+
+
+def qc_mask(codes, lengths, min_overlap: int):
+    """Good-read mask (reference: Dataset.cpp:160 and testRead at :398-413)
+    on the device of `codes`.
+
+    A read is good iff length > min_overlap, all chars in {A,C,G,T}, and no
+    single base accounts for >= trunc(len * 0.8) positions.  The threshold is
+    computed host-side in float64 to replicate the C++ double->integer
+    truncation exactly (not in float32 on the device).
+    """
+    lens = lengths.cpu().numpy()
+    thresholds = np.trunc(lens.astype(np.float64) * 0.8).astype(np.int64)
+    return _qc_kernel(codes, lengths.to(codes.device, torch.int64),
+                      torch.from_numpy(thresholds).to(codes.device),
+                      min_overlap)
 
 
 def reverse_complement_codes_np(codes: np.ndarray,

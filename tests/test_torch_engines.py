@@ -1,0 +1,233 @@
+"""The port's hybrid and host engines (torch on the CPU) against the JAX
+package's and the native engine, and the port's `auto` rule.
+
+Hybrid: across split fractions and dataset shapes, the .unitig bytes and
+the contained-read marks (super_read_id) equal the native engine's and the
+JAX hybrid engine's, and every case proves that the hybrid path ran (the
+CPU scan returned a shard and the device pipeline probed from row a > 1).
+Host: the .unitig and sorted-reads bytes equal the JAX host engine's over
+the min_overlap sweep of tests/test_engine_lsweep.py."""
+
+import os
+import random
+import tempfile
+import time
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "golden", "data")
+
+
+def _quiet(*a, **k):
+    pass
+
+
+@pytest.fixture
+def native_lib():
+    """The native library, loaded in the test (not at collection).  The
+    reference loader caches a failed first build for the life of the
+    process, and concurrent first builds can fail (ROADMAP section 3);
+    once another process's build has landed a second try loads it."""
+    from metagenomics_tpu import native
+    for _ in range(3):
+        if native.get_lib() is not None:
+            return native
+        native._tried = False
+        time.sleep(2)
+    lib = native.get_lib()
+    assert lib is not None, "the native library does not build"
+    return native
+
+
+@pytest.fixture
+def torch_cpu(monkeypatch):
+    monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
+
+
+def _mkreads(tmp_path, n=6000, glen=60_000, L=100, seed=9):
+    """tests/test_hybrid.py's uniform single-end set."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, np.uint8)
+    for k, v in zip(b"ACGT", b"TGCA"):
+        comp[k] = v
+    g = bases[rng.integers(0, 4, glen)]
+    starts = rng.integers(0, glen - L + 1, n)
+    reads = g[starts[:, None] + np.arange(L)[None, :]]
+    flip = rng.random(n) < 0.5
+    reads = np.where(flip[:, None], comp[reads[:, ::-1]], reads)
+    path = tmp_path / "uniform.fasta"
+    with open(path, "wb") as f:
+        for i in range(n):
+            f.write(b">r%d\n%s\n" % (i, reads[i].tobytes()))
+    return str(path)
+
+
+def _graph(pkg, pe, se, min_overlap):
+    if pkg == "jax":
+        from metagenomics_tpu.dataset import Dataset
+        from metagenomics_tpu.graph import OverlapGraph
+    else:
+        from metagenomics_tpu_torch.dataset import Dataset
+        from metagenomics_tpu_torch.graph import OverlapGraph
+    from metagenomics_tpu.config import AssemblerConfig
+    ds = Dataset(list(pe), list(se), min_overlap, log=_quiet)
+    cfg = AssemblerConfig(min_overlap=min_overlap, paired_end_files=list(pe),
+                          single_end_files=list(se))
+    return ds, OverlapGraph(ds, cfg, log=_quiet)
+
+
+def _saved(ds, graph):
+    """(.unitig bytes, sorted-reads bytes, super_read_id)."""
+    graph.sort_edges()
+    with tempfile.TemporaryDirectory() as td:
+        up, sp = os.path.join(td, "u"), os.path.join(td, "s")
+        graph.save_graph_to_file(up)
+        ds.save_reads(sp)
+        return (open(up, "rb").read(), open(sp, "rb").read(),
+                tuple(ds.super_read_id.tolist()))
+
+
+def _hybrid(pkg, se, frac, native, monkeypatch):
+    """Build with build_hybrid; record the CPU shard and, for the port, the
+    device pipeline's first probed row to prove the hybrid path ran."""
+    from metagenomics_tpu_torch.ops import device_overlap as tdo
+    seen = {"rows": [], "shards": []}
+    scan = native.scan_canon
+
+    def scan_canon(*a, **k):
+        out = scan(*a, **k)
+        seen["shards"].append(out)
+        return out
+
+    class Pipeline(tdo.DeviceOverlapPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["rows"].append(self.row0)
+
+    with monkeypatch.context() as mp:
+        mp.setenv("MGTPU_HYBRID_CPU_FRAC", str(frac))
+        mp.setattr(native, "scan_canon", scan_canon)
+        mp.setattr(tdo, "DeviceOverlapPipeline", Pipeline)
+        ds, graph = _graph(pkg, [], [se], 40)
+        assert graph.build_hybrid(), "hybrid refused the data set"
+    assert len(seen["shards"]) == 1 and seen["shards"][0] is not None
+    if pkg == "torch":
+        a = 1 + int(ds.number_of_unique_reads * frac)
+        assert seen["rows"] == [a] and a > 1
+    return _saved(ds, graph)
+
+
+def _hybrid_case(se, frac, native, monkeypatch):
+    monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
+    got = _hybrid("torch", se, frac, native, monkeypatch)
+    ds, graph = _graph("torch", [], [se], 40)
+    assert graph.build_full_native()
+    want = _saved(ds, graph)
+    assert got[2] == want[2], "supers differ from the native engine"
+    assert got[0] == want[0] and len(got[0]) > 0
+    assert got == _hybrid("jax", se, frac, native, monkeypatch)
+
+
+@pytest.mark.parametrize("frac", [0.25, 0.5, 0.85])
+def test_hybrid_unitig_equal(tmp_path, frac, native_lib, monkeypatch):
+    _hybrid_case(_mkreads(tmp_path), frac, native_lib, monkeypatch)
+
+
+@pytest.mark.parametrize("name,frac", [
+    ("se_mixlen.fasta", 0.5), ("se_mixlen.fasta", 0.9),
+    ("se_heap.fasta", 0.7)])
+def test_hybrid_mixed_lengths(name, frac, native_lib, monkeypatch):
+    """Containment resolved globally across the shards."""
+    _hybrid_case(os.path.join(GOLDEN, name), frac, native_lib, monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def sweep_reads():
+    """tests/test_engine_lsweep.py's tiling reads: mixed lengths,
+    containments and a near-miss pair that differs at one seed base."""
+    rng = random.Random(20240817)
+    g = "".join(rng.choice("ACGT") for _ in range(3000))
+    reads = []
+    for pos in range(0, 2800, 23):
+        ln = rng.choice([110, 120, 135, 150])
+        frag = g[pos:pos + ln]
+        if len(frag) > 105:
+            reads.append(frag)
+    for pos in range(40, 2000, 310):
+        reads.append(g[pos:pos + 90])
+    base = g[500:615]
+    mut = "A" if base[10] != "A" else "C"
+    reads.append(base[:10] + mut + base[11:])
+    rng.shuffle(reads)
+    return reads
+
+
+@pytest.mark.parametrize("min_overlap", [40, 64, 65, 66, 100])
+def test_host_engine_matches_jax(tmp_path, sweep_reads, min_overlap,
+                                 torch_cpu):
+    from metagenomics_tpu.index import OverlapIndex as JIndex
+    from metagenomics_tpu_torch.index import OverlapIndex as TIndex
+    path = tmp_path / "sweep.fasta"
+    path.write_text("".join(">r%d\n%s\n" % (i, s)
+                            for i, s in enumerate(sweep_reads)))
+    out = {}
+    for pkg, index in (("jax", JIndex), ("torch", TIndex)):
+        ds, graph = _graph(pkg, [], [str(path)], min_overlap)
+        graph.build_from_index(index(ds, min_overlap))
+        out[pkg] = _saved(ds, graph)
+    # at -l 100 no overlap qualifies and the .unitig is empty
+    assert out["torch"] == out["jax"] and len(out["torch"][1]) > 0
+    assert (len(out["torch"][0]) > 0) == (min_overlap < 100)
+
+
+@pytest.mark.parametrize("device,n_cards,engine", [
+    ("cuda", 1, "hybrid"), ("cuda", 2, "hybrid"), ("cpu", 0, "native")])
+def test_auto_rule(device, n_cards, engine):
+    """metagenomics_tpu/assembler.py:63-77 with the card as the TPU; two
+    cards take hybrid until the sharded engine is ported."""
+    from metagenomics_tpu_torch.assembler import auto_engine
+    assert auto_engine(device, n_cards) == engine
+
+
+def _engine_run(monkeypatch, engine, se, no_native=False):
+    """Assembler._build_engine on a data set; returns the engine that
+    built the graph and the .unitig bytes."""
+    from metagenomics_tpu.config import AssemblerConfig
+    from metagenomics_tpu_torch.assembler import Assembler
+    monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine)
+    if no_native:
+        monkeypatch.setenv("MGTPU_NO_NATIVE", "1")
+    ds, graph = _graph("torch", [], [se], 40)
+    asm = Assembler(AssemblerConfig(min_overlap=40, single_end_files=[se]),
+                    log=_quiet)
+    asm.dataset = ds
+    asm._build_engine(graph)
+    monkeypatch.delenv("MGTPU_NO_NATIVE", raising=False)
+    return asm.engine, _saved(ds, graph)[0]
+
+
+def test_auto_on_cpu_is_native_then_device(native_lib, torch_cpu,
+                                           monkeypatch):
+    se = os.path.join(GOLDEN, "se_hard.fasta")
+    engine, unitig = _engine_run(monkeypatch, "auto", se)
+    assert engine == "native"
+    engine, fallback = _engine_run(monkeypatch, "auto", se, no_native=True)
+    assert engine == "device" and fallback == unitig
+
+
+def test_hybrid_falls_back_below_1024_reads(tmp_path, native_lib, torch_cpu,
+                                            monkeypatch):
+    """build_hybrid refuses fewer than 1024 reads, and the device pipeline
+    builds the same graph instead."""
+    se = _mkreads(tmp_path, n=900, glen=9_000)
+    engine, unitig = _engine_run(monkeypatch, "hybrid", se)
+    assert engine == "device"
+    assert unitig == _engine_run(monkeypatch, "native", se)[1]
+    engine, _ = _engine_run(monkeypatch, "hybrid", _mkreads(tmp_path))
+    assert engine == "hybrid"

@@ -1,7 +1,8 @@
-"""The port's CLI (python -m metagenomics_tpu_torch.cli, device engine on
-the CPU) against the reference assembler's golden artifacts: all 12 staged
-artifacts byte-equal and the normalized log equal, for the nine golden
-configs and the -s resume; one run proves the port never imports jax."""
+"""The port's CLI (python -m metagenomics_tpu_torch.cli, device and hybrid
+engines on the CPU) against the reference assembler's golden artifacts: all
+12 staged artifacts byte-equal and the normalized log equal, for the nine
+golden configs and the -s resume; one run proves the port never imports
+jax.  The host engine's runs are in tests/test_torch_golden_host.py."""
 
 import os
 import shutil
@@ -45,11 +46,11 @@ _NO_JAX = ("import sys; sys.modules['jax'] = None; "
            "from metagenomics_tpu_torch.cli import main; main(sys.argv[1:])")
 
 
-def _run(tmp_path, args, no_jax=False, extra=()):
+def _run(tmp_path, args, no_jax=False, extra=(), engine="device"):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["MGTPU_TORCH_DEVICE"] = "cpu"
-    env["MGTPU_OVERLAP_ENGINE"] = "device"
+    env["MGTPU_OVERLAP_ENGINE"] = engine
     # one torch thread: the suite runs several workers side by side
     env["OMP_NUM_THREADS"] = "1"
     argv = [*args, "-f", "t_", "-l", "40", *extra]
@@ -78,6 +79,17 @@ def test_golden_config(name, tmp_path):
                      "%s/torch-device" % name)
 
 
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_golden_config_hybrid(name, tmp_path):
+    """Every golden set has >= 1024 unique reads, so each run takes the
+    hybrid path (tests/test_torch_engines.py proves the path itself)."""
+    proc = _run(tmp_path, CONFIGS[name], engine="hybrid")
+    _check_artifacts(tmp_path, name)
+    assert_log_equal(proc.stdout,
+                     os.path.join(GOLDEN, "out", name, "log.txt"),
+                     "%s/torch-hybrid" % name)
+
+
 def test_resume_from_unitig(tmp_path):
     """The -s resume path reproduces the post-unitig artifacts."""
     shutil.copy(os.path.join(GOLDEN, "out", "pe_small", "g_.unitig"),
@@ -100,7 +112,7 @@ def test_cli_never_imports_jax(tmp_path):
                      "se_mixlen/no-jax")
 
 
-@pytest.mark.parametrize("engine", ["hybrid", "sharded", "host"])
+@pytest.mark.parametrize("engine", ["sharded"])
 def test_unported_engines_raise(engine, monkeypatch):
     """Engines the port does not run yet name their ROADMAP item."""
     from metagenomics_tpu.config import AssemblerConfig

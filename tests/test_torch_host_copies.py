@@ -10,7 +10,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-COPIES = ["dataset.py", "hashstats.py"] + [
+COPIES = ["dataset.py", "hashstats.py", "index.py"] + [
     "graph/%s.py" % m for m in (
         "__init__", "core", "build", "simplify", "flow", "matepair",
         "scaffold", "genome_size", "matepair_graph")]
@@ -20,6 +20,9 @@ PACKING_FUNCS = ["ascii_to_codes", "codes_to_ascii",
                  "reverse_complement_codes_np", "_lex_less_np",
                  "canonicalize_codes_np", "qc_mask_np",
                  "codes_to_ascii_all", "pack_sort_limbs"]
+# its device half, ported to torch (tests/test_torch_packing.py)
+PACKING_DEVICE_FUNCS = ["reverse_complement_codes", "_lex_less",
+                        "canonicalize_codes", "_qc_kernel", "qc_mask"]
 
 
 class _DropImports(ast.NodeTransformer):
@@ -79,4 +82,5 @@ def test_packing_host_half_equals_original():
     port, ref = funcs("metagenomics_tpu_torch"), funcs("metagenomics_tpu")
     for name in PACKING_FUNCS:
         assert port[name] == ref[name], name
-    assert set(port) == set(PACKING_FUNCS)
+    assert set(port) == set(PACKING_FUNCS) | set(PACKING_DEVICE_FUNCS)
+    assert set(ref) == set(port)
