@@ -7,11 +7,13 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. setup: card name and power limit, torch/CUDA/nvcc versions, and the
-     build of the window-hash kernel (csrc/window_hash.cu) from the sources;
-  2. kernel check: the CUDA window hash is bit-equal to its plain PyTorch
-     version (window_hashes_torch) on the card at the reference's test
-     shapes, a long-read shape and both l extremes (phase 4 repeats the
-     check on its first 4096 dataset rows and on its full code matrix);
+     build of the window-hash kernels (csrc/window_hash.cu: window_hash
+     and window_hash_at) and of the port's native library from the
+     sources;
+  2. kernel check: each CUDA kernel is bit-equal to its plain PyTorch
+     version (window_hashes_torch, window_hashes_at_torch) on the card at
+     the reference's test shapes, a long-read shape and both l extremes
+     (phase 4 repeats the checks on its full code matrix);
   3. golden configs: the port's CLI on cuda with the device, hybrid and
      host engines writes all 12 artifacts byte-equal to golden/out/<cfg>/
      (and the normalized log equal to the reference log) for the nine
@@ -22,17 +24,21 @@ Phases (any failure exits non-zero; nothing is caught):
      with the `auto` engine (which must resolve to hybrid on one card),
      the device engine and the host engine, and with the native C++
      engine; all 12 artifacts of each must be byte-equal to the native
-     engine's.  Checks the kernel on that data set, then prints each run's
-     phase times and peak device memory, the kernel's and the plain
-     version's time at the main path's shape, each beside the card's name
-     and power limit.
+     engine's.  Checks both kernels on that data set (window_hash at
+     l = 15, 39 and 63), then prints each run's phase times and peak
+     device memory, and each kernel's and plain version's time at the
+     main path's shapes (window_hash also at l = 15 and 63) beside its
+     bound and its share of the bound, with the card's name and power
+     limit.
 
-The kernel's launch counter is set to 0 just before each run of the CLI
+Each kernel's launch counter is set to 0 just before each run of the CLI
 and read just after it; a device or hybrid run (one that did not fall
-back) that never launched the kernel fails the smoke.  The main path is
-phase 4's `auto` (hybrid) run.  The last two lines are the kernels record
-and {"ok": true, "device": ...}.  Exits non-zero without a result when no
-CUDA device is available.
+back) that did not launch each kernel fails the smoke, and a se_1m device
+or hybrid run must launch each exactly once.  The main path is phase 4's
+`auto` (hybrid) run.  The smoke fails if jax or any module of the JAX
+package (metagenomics_tpu) was imported.  The last two lines are the
+kernels record and {"ok": true, "device": ...}.  Exits non-zero without
+a result when no CUDA device is available.
 """
 
 import contextlib
@@ -41,6 +47,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -73,6 +80,14 @@ GOLDEN_CONFIGS = {
 # at the 4096 length cap, and the l = lmax / l = 1 extremes
 KERNEL_SHAPES = [(3, 50, 11), (300, 100, 39), (64, 130, 64),
                  (256, 4095, 63), (5, 40, 40), (7, 33, 1)]
+
+# the kernels of the port's main path, each with its own launch counter
+KERNELS = ("window_hash", "window_hash_at")
+
+# the card's peak rates for bound_ms (NVIDIA's data sheet, H100 SXM):
+# device memory, and 32-bit operations outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 # phase 4 data set: bench.py's generator (seed 7, random strand) at 1M
 # reads over 3 Mb + 2 Mb genomes
@@ -108,49 +123,122 @@ def setup(torch, window_hash):
     ver = subprocess.run([nvcc, "--version"], capture_output=True,
                          text=True, check=True).stdout.strip()
     log("nvcc (%s): %s" % (nvcc, ver.splitlines()[-1]))
+    # the native replay library (g++) builds beside the kernels (nvcc), so
+    # no timed phase pays for either
+    from metagenomics_tpu_torch import native
+    built = {}
     t0 = time.time()
+    g = threading.Thread(target=lambda: built.update(
+        lib=native.get_lib(), s=time.time() - t0))
+    g.start()
     so = window_hash.build_library()
     window_hash._load()
-    log("window_hash kernel built in %.3f s: %s"
+    log("window_hash kernels built in %.3f s: %s"
         % (time.time() - t0, os.path.relpath(so, REPO)))
-    # the native replay library, built here so no timed phase pays g++
-    from metagenomics_tpu import native
-    t0 = time.time()
-    if native.get_lib() is None:
+    g.join()
+    if built["lib"] is None:
         raise SystemExit("the native replay library failed to build")
-    log("native replay library ready in %.3f s" % (time.time() - t0))
+    log("native replay library ready in %.3f s" % built["s"])
     build_log = os.path.join(os.path.dirname(so), "build.log")
     if os.path.exists(build_log):
         for line in open(build_log).read().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 log("  ptxas: %s" % line.strip())
 
 
-def check_hashes(torch, window_hash, codes, l, label):
-    """Kernel vs plain version on one CUDA tensor; returns max |err|."""
-    got = window_hash.window_hashes_cuda(codes, l)
+def check_equal(torch, got_fn, want_fn, label):
+    """A kernel vs its plain version on the same CUDA inputs; returns the
+    max |err| (0: they must be bit-equal)."""
+    got = got_fn()
     torch.cuda.synchronize()
-    want = window_hash.window_hashes_torch(codes, l)
+    want = want_fn()
     torch.cuda.synchronize()
     err = int((got - want).abs().max()) if got.numel() else 0
     same = torch.equal(got, want)
-    log("  %-34s l=%-3d %s" % (label, l,
-                                "bit-equal" if same else "MISMATCH"))
+    log("  %-52s %s" % (label, "bit-equal" if same else "MISMATCH"))
     if not same:
-        raise SystemExit("window_hash kernel disagrees with its plain "
-                         "version at %s (max abs err %d)" % (label, err))
+        raise SystemExit("kernel disagrees with its plain version at %s "
+                         "(max abs err %d)" % (label, err))
     return err
+
+
+def check_hashes(torch, window_hash, codes, l, label):
+    """window_hash vs window_hashes_torch on one CUDA tensor."""
+    return check_equal(
+        torch, lambda: window_hash.window_hashes_cuda(codes, l),
+        lambda: window_hash.window_hashes_torch(codes, l),
+        "window_hash %s l=%d" % (label, l))
+
+
+def reverse_starts(torch, lengths, lmax, l):
+    """_setup_kernel's reverse-strand starts (lmax - len, lmax - l) for
+    rows [1:] of a code matrix, int64 [n, 2] on the card."""
+    lengths = torch.as_tensor(lengths[1:], dtype=torch.int64).cuda()
+    return torch.stack([lmax - lengths, torch.full_like(lengths, lmax - l)],
+                       dim=1)
+
+
+def check_at(torch, window_hash, codes, l, starts, label):
+    """window_hash_at vs window_hashes_at_torch on one CUDA tensor."""
+    return check_equal(
+        torch, lambda: window_hash.window_hashes_at_cuda(codes, l, starts),
+        lambda: window_hash.window_hashes_at_torch(codes, l, starts),
+        "window_hash_at %s l=%d" % (label, l))
 
 
 def kernel_check(torch, window_hash, rng):
     log("== phase 2: kernel check (CUDA vs plain, exact equality)")
-    err = 0
+    err = dict.fromkeys(KERNELS, 0)
     for n, lmax, l in KERNEL_SHAPES:
         codes = torch.from_numpy(
             rng.integers(0, 5, (n, lmax)).astype("uint8")).cuda()
-        err = max(err, check_hashes(torch, window_hash, codes, l,
-                                    "random codes [%d, %d]" % (n, lmax)))
+        label = "random codes [%d, %d]" % (n, lmax)
+        err["window_hash"] = max(err["window_hash"], check_hashes(
+            torch, window_hash, codes, l, label))
+        # rows [1:] as _setup_kernel passes them (a view 1 row in), at the
+        # reverse-strand starts of random lengths and at random starts
+        lengths = rng.integers(l, lmax + 1, n)
+        starts = torch.cat([
+            reverse_starts(torch, lengths, lmax, l),
+            torch.from_numpy(rng.integers(0, lmax - l + 1, (n - 1, 1))).cuda(),
+        ], dim=1)
+        err["window_hash_at"] = max(err["window_hash_at"], check_at(
+            torch, window_hash, codes[1:], l, starts,
+            "rows [1:] of %s" % label))
     return err
+
+
+def hash_bound(n, lmax, l):
+    """(bound_ms, bound_by, bytes) of window_hash at [n, lmax], l: codes
+    read once, hashes written once; operations: a multiply and an add per
+    code byte and base for the prefixes, and 7 per output (a multiply and
+    a subtract per base, then 2 multiplies and a xor to mix)."""
+    npos = lmax - l + 1
+    nbytes = n * lmax + n * npos * 8
+    ops = n * (4 * lmax + 7 * npos)
+    return bound(nbytes, ops) + (nbytes,)
+
+
+def at_bound(torch, starts, l):
+    """(bound_ms, bound_by, bytes) of window_hash_at: the code bytes the
+    windows of each row cover (their union, from this run's starts), the
+    starts read and the hashes written once; operations: 2 multiply-adds
+    per base, 2 bases, per window byte, and the mix."""
+    s = torch.sort(starts, dim=1).values
+    covered = int((l + torch.clamp(s[:, 1:] - s[:, :-1], max=l).sum(1))
+                  .sum())
+    nbytes = covered + 2 * starts.numel() * 8
+    ops = starts.numel() * (4 * l + 3)
+    return bound(nbytes, ops) + (nbytes,)
+
+
+def bound(nbytes, ops):
+    """The larger of the bytes' and the operations' least times, in ms."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
 
 
 @contextlib.contextmanager
@@ -193,6 +281,16 @@ def diff_artifacts(dir_a, prefix_a, dir_b, prefix_b):
     return bad
 
 
+def reset_counts(window_hash):
+    window_hash.launches = 0
+    window_hash.at_launches = 0
+
+
+def read_counts(window_hash):
+    return {"window_hash": window_hash.launches,
+            "window_hash_at": window_hash.at_launches}
+
+
 def golden_phase(window_hash, tmp):
     log("== phase 3: golden configs, device, hybrid and host engines on "
         "cuda")
@@ -201,36 +299,38 @@ def golden_phase(window_hash, tmp):
     launched = {}
     took = {}
     for engine in ("device", "hybrid", "host"):
-        launched[engine] = 0
+        launched[engine] = dict.fromkeys(KERNELS, 0)
         for name, args in GOLDEN_CONFIGS.items():
             wd = os.path.join(tmp, "golden_%s_%s" % (engine, name))
             t0 = time.time()
-            window_hash.launches = 0
+            reset_counts(window_hash)
             asm, text = run_cli(args, wd, engine)
-            n = window_hash.launches
+            counts = read_counts(window_hash)
             dt = time.time() - t0
             bad = diff_artifacts(wd, "t_", os.path.join(GOLDEN, "out", name),
                                  "g_")
             ref = open(os.path.join(GOLDEN, "out", name, "log.txt")).read()
             log_ok = normalize_log(text) == normalize_log(ref)
-            log("  %-6s %-10s %6.2f s  ran %-6s  window_hash launches %2d  "
+            log("  %-6s %-10s %6.2f s  ran %-6s  launches %s  "
                 "12 artifacts %s, log %s"
-                % (engine, name, dt, asm.engine, n,
+                % (engine, name, dt, asm.engine, counts,
                    "byte-equal" if not bad else "DIFFER %s" % bad,
                    "equal" if log_ok else "DIFFERS"))
             if bad or not log_ok:
                 raise SystemExit("golden config %s differs on the card with "
                                  "the %s engine" % (name, engine))
-            if asm.engine in ("device", "hybrid") and n <= 0:
-                raise SystemExit("the %s run of %s never launched the "
-                                 "kernel" % (asm.engine, name))
+            if asm.engine in ("device", "hybrid") and \
+                    min(counts.values()) <= 0:
+                raise SystemExit("the %s run of %s did not launch every "
+                                 "kernel: %s" % (asm.engine, name, counts))
             if engine == "hybrid":
                 took.setdefault(asm.engine, []).append(name)
-            launched[engine] += n
+            for k, v in counts.items():
+                launched[engine][k] += v
     log("  hybrid path taken by: %s" % ", ".join(took.get("hybrid", [])))
     log("  fell back to the device pipeline: %s"
         % (", ".join(took.get("device", [])) or "none"))
-    log("  window_hash launches in phase 3: %s" % launched)
+    log("  launches in phase 3: %s" % launched)
 
 
 def write_reads(path):
@@ -256,46 +356,76 @@ def write_reads(path):
     return rid
 
 
-def time_kernel(torch, window_hash, codes, l, reps=10):
-    """Mean ms per call of the kernel and of the plain version on the same
-    CUDA tensor, timed with CUDA events in turns plain, kernel, kernel,
-    plain (after one warm-up call each)."""
-    fns = {"cuda": window_hash.window_hashes_cuda,
-           "plain": window_hash.window_hashes_torch}
+def time_turns(torch, fns, reps=10):
+    """Mean ms per call of each no-argument fn, timed with CUDA events in
+    turns f0, f1, ..., f1, f0 (plain, kernel, kernel, plain) after one
+    warm-up call each."""
     for fn in fns.values():
-        fn(codes, l)
+        fn()
     torch.cuda.synchronize()
-    total = {"cuda": 0.0, "plain": 0.0}
-    for name in ("plain", "cuda", "cuda", "plain"):
+    names = list(fns)
+    total = dict.fromkeys(names, 0.0)
+    for name in names + names[::-1]:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            fns[name](codes, l)
+            fns[name]()
         stop.record()
         torch.cuda.synchronize()
         total[name] += start.elapsed_time(stop)
-    return total["cuda"] / (2 * reps), total["plain"] / (2 * reps)
+    return {k: v / (2 * reps) for k, v in total.items()}
 
 
 def engine_run(torch, window_hash, args, workdir, engine, card):
-    """One CLI run on cuda with the launch counter and the peak device
+    """One CLI run on cuda with the launch counters and the peak device
     memory reset just before it and read just after; prints its phase
-    times.  Returns (Assembler, launches)."""
+    times.  Returns (Assembler, launches by kernel)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    window_hash.launches = 0
+    reset_counts(window_hash)
     asm, _ = run_cli(args, workdir, engine)
     torch.cuda.synchronize()
-    launches = window_hash.launches
+    counts = read_counts(window_hash)
     peak = torch.cuda.max_memory_allocated()
-    log("  %s engine (ran %s) [%s]: %d unique reads, window_hash launches "
-        "%d, peak device memory %d bytes"
+    log("  %s engine (ran %s) [%s]: %d unique reads, launches %s, peak "
+        "device memory %d bytes"
         % (engine, asm.engine, card, asm.dataset.number_of_unique_reads,
-           launches, peak))
+           counts, peak))
     for k, v in asm.timings.items():
         log("    %-32s %.6f s" % (k, v))
-    return asm, launches
+    if asm.engine in ("device", "hybrid") and \
+            counts != dict.fromkeys(KERNELS, 1):
+        raise SystemExit("the %s run launched %s, not each kernel once"
+                         % (asm.engine, counts))
+    return asm, counts
+
+
+def timed_record(torch, fns, reps, bound_ms, bound_by, nbytes, label, card):
+    """Time kernel vs plain (and any other entry of fns, e.g. the wrapper);
+    print each beside the bound and the kernel's share of it."""
+    ms = time_turns(torch, fns, reps)
+    log("  %s [%s]: %s, bound %.6f ms (%s: %d bytes), kernel at %.1f%% of "
+        "the bound"
+        % (label, card, ", ".join("%s %.6f ms" % kv for kv in ms.items()),
+           bound_ms, bound_by, nbytes, 100 * bound_ms / ms["kernel"]))
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **{k + "_ms": v for k, v in ms.items()
+               if k not in ("kernel", "plain")}}
+
+
+def raw_at_launch(torch, window_hash, codes, l, starts):
+    """window_hash_at's kernel alone: the wrapper's launch without its
+    range check (a device-to-host read) and without its counter."""
+    out = torch.empty(starts.shape, dtype=torch.int64, device=codes.device)
+    err = window_hash._load().window_hash_at_launch(
+        codes.data_ptr(), starts.data_ptr(), out.data_ptr(), codes.shape[0],
+        codes.shape[1], l, starts.shape[1],
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit("window_hash_at launch failed: CUDA error %d" % err)
+    return out
 
 
 def real_size_phase(torch, window_hash, tmp, card):
@@ -312,15 +442,11 @@ def real_size_phase(torch, window_hash, tmp, card):
                                os.path.join(tmp, "real_auto"), "auto", card)
     if asm.engine != "hybrid":
         raise SystemExit("auto on one card ran %s, not hybrid" % asm.engine)
-    if launches <= 0:
-        raise SystemExit("the main path never launched the kernel")
     by_path = {"hybrid": launches}
     ds = asm.dataset
     _, by_path["device"] = engine_run(torch, window_hash, args,
                                       os.path.join(tmp, "real_device"),
                                       "device", card)
-    if by_path["device"] <= 0:
-        raise SystemExit("the device engine never launched the kernel")
     engine_run(torch, window_hash, args, os.path.join(tmp, "real_host"),
                "host", card)
 
@@ -339,22 +465,59 @@ def real_size_phase(torch, window_hash, tmp, card):
                              "the native engine: %s" % (engine, bad))
 
     l = MIN_OVERLAP - 1
+    err = dict.fromkeys(KERNELS, 0)
     # the first 4096 rows with codes masked to 2 bits: the input the TPU
     # kernel's own on-chip check used (TPU_KERNEL_CHECK.json), kept so the
     # two records compare; the full matrix below is the main path's input
-    err = check_hashes(torch, window_hash,
-                       torch.from_numpy(ds.codes_fwd[:4096] & 3).cuda(), l,
-                       "dataset rows [4096, %d]" % ds.codes_fwd.shape[1])
+    err["window_hash"] = check_hashes(
+        torch, window_hash, torch.from_numpy(ds.codes_fwd[:4096] & 3).cuda(),
+        l, "dataset rows [4096, %d]" % ds.codes_fwd.shape[1])
     codes = torch.from_numpy(ds.codes_fwd).cuda()
-    err = max(err, check_hashes(torch, window_hash, codes, l,
-                                "dataset [%d, %d]" % tuple(codes.shape)))
-    ms, plain_ms = time_kernel(torch, window_hash, codes, l)
-    log("  window_hash at [%d, %d], l=%d [%s]: kernel %.6f ms, plain "
-        "%.6f ms" % (codes.shape[0], codes.shape[1], l, card, ms,
-                     plain_ms))
-    return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "paths": sorted(by_path),
-            "launches_by_path": by_path}
+    rows, lmax = codes.shape
+    for hl in (15, l, 63):
+        err["window_hash"] = max(err["window_hash"], check_hashes(
+            torch, window_hash, codes, hl, "dataset [%d, %d]" % (rows, lmax)))
+    # window_hash_at's main-path input: rows [1:] of the flipped reverse
+    # strand (_setup_kernel), at starts (lmax - len, lmax - l)
+    flipped = (3 - codes.flip(1)).contiguous()
+    starts = reverse_starts(torch, ds.lengths, lmax, l)
+    err["window_hash_at"] = check_at(
+        torch, window_hash, flipped[1:], l, starts,
+        "flipped rows [1:] [%d, %d], starts [%d, 2]"
+        % (rows - 1, lmax, rows - 1))
+
+    sweep = {}
+    for hl in (15, l, 63):
+        bound_ms, bound_by, nbytes = hash_bound(rows, lmax, hl)
+        sweep[hl] = timed_record(
+            torch, {"plain": lambda: window_hash.window_hashes_torch(codes, hl),
+                    "kernel": lambda: window_hash.window_hashes_cuda(codes,
+                                                                     hl)},
+            20, bound_ms, bound_by, nbytes,
+            "window_hash at [%d, %d], l=%d" % (rows, lmax, hl), card)
+    bound_ms, bound_by, nbytes = at_bound(torch, starts, l)
+    rev = flipped[1:]
+    if not torch.equal(raw_at_launch(torch, window_hash, rev, l, starts),
+                       window_hash.window_hashes_at_torch(rev, l, starts)):
+        raise SystemExit("window_hash_at's raw launch disagrees")
+    # ms: the kernel alone; wrapper_ms: what the main path pays per call
+    at = timed_record(
+        torch,
+        {"plain": lambda: window_hash.window_hashes_at_torch(rev, l, starts),
+         "kernel": lambda: raw_at_launch(torch, window_hash, rev, l, starts),
+         "wrapper": lambda: window_hash.window_hashes_at_cuda(rev, l,
+                                                              starts)},
+        20, bound_ms, bound_by, nbytes,
+        "window_hash_at at [%d, %d] x [%d, 2], l=%d"
+        % (rows - 1, lmax, rows - 1, l), card)
+    return [
+        {"name": "window_hash", **sweep[l], "max_abs_err": err["window_hash"],
+         "launches": launches["window_hash"],
+         "sweep_l": {str(k): v for k, v in sweep.items()}},
+        {"name": "window_hash_at", **at,
+         "max_abs_err": err["window_hash_at"],
+         "launches": launches["window_hash_at"]},
+    ], by_path
 
 
 def main():
@@ -372,17 +535,27 @@ def main():
     err = kernel_check(torch, window_hash, rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         golden_phase(window_hash, tmp)
-        record = real_size_phase(torch, window_hash, tmp, card)
-    record["max_abs_err"] = max(err, record["max_abs_err"])
-    if "jax" in sys.modules:
-        raise SystemExit("the port imported jax")
+        records, by_path = real_size_phase(torch, window_hash, tmp, card)
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.")
+                    or m == "metagenomics_tpu"
+                    or m.startswith("metagenomics_tpu."))
+    if leaked:
+        raise SystemExit("the port imported %s" % ", ".join(leaked))
 
+    kernels = []
+    for rec in records:
+        name = rec["name"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "metagenomics_tpu_torch/csrc/window_hash.cu",
+            "replaces": "metagenomics_tpu/ops/pallas_hash.py:56",
+            **rec, "max_abs_err": max(err[name], rec["max_abs_err"]),
+            # no single PyTorch call computes a window hash
+            "library_ms": None, "paths": sorted(by_path),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "window_hash", "route": "cuda",
-        "source": "metagenomics_tpu_torch/csrc/window_hash.cu",
-        "replaces": "metagenomics_tpu/ops/pallas_hash.py:56",
-        **record}]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

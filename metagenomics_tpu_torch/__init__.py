@@ -6,14 +6,15 @@ byte for byte, with the overlap pipeline running as torch ops on one
 torch.device and the window hashes as a hand-written CUDA kernel
 (csrc/window_hash.cu) on an NVIDIA Hopper card.
 
-Host modules that import jax in the reference (dataset, hashstats, graph/*)
-are verbatim copies whose imports point at this package; jax-free modules
-(config, errors, io, native, cs2replay, mincostflow, utils.stdsort) are
-imported from metagenomics_tpu directly.  This package never imports jax.
+The host modules (dataset, hashstats, index, graph/*, config, errors, io,
+native, cs2replay, mincostflow, utils.stdsort) are verbatim copies of the
+reference's whose imports point at this package, and the native library
+builds from this package's own native/mg_native.cpp.  This package imports
+neither jax nor metagenomics_tpu, and runs with both absent.
 """
 
 __version__ = "0.1.0"
 
-from metagenomics_tpu.config import AssemblerConfig
+from .config import AssemblerConfig
 
 __all__ = ["AssemblerConfig"]

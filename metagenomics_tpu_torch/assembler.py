@@ -11,7 +11,7 @@ Port of metagenomics_tpu/assembler.py; only the engine dispatch differs.
 
 import time
 
-from metagenomics_tpu.config import AssemblerConfig
+from .config import AssemblerConfig
 from .dataset import Dataset
 from .graph import OverlapGraph
 from .index import OverlapIndex
@@ -87,7 +87,7 @@ class Assembler:
     def _build_engine(self, graph):
         import os
         import torch
-        from metagenomics_tpu import native
+        from . import native
         from .ops.device_overlap import DeviceOverlapPipeline, torch_device
         engine = os.environ.get("MGTPU_OVERLAP_ENGINE",
                                 getattr(self.cfg, "overlap_engine", "auto"))
@@ -146,7 +146,7 @@ class Assembler:
         if ds.number_of_unique_reads == 0:
             # the reference segfaults in HashTable::insertDataset here; stop
             # with a labeled diagnostic instead
-            from metagenomics_tpu.errors import MyExit
+            from .errors import MyExit
             raise MyExit("No good reads in input; nothing to assemble.")
         graph = OverlapGraph(ds, cfg, log=self.log)
         self.dataset = ds

@@ -10,7 +10,7 @@ its device from MGTPU_TORCH_DEVICE (cuda by default).
 
 import sys
 
-from metagenomics_tpu.config import AssemblerConfig
+from .config import AssemblerConfig
 from .assembler import Assembler
 
 _USAGE = """Usage: metagenomics_tpu [OPTION]...[PRARAM]...
@@ -75,7 +75,7 @@ def main(argv=None):
     # the reference echoes each argv followed by a space (main.cpp:126)
     print("".join(a + " " for a in argv))
     cfg = parse_arguments(argv)
-    from metagenomics_tpu.errors import (FlowInfeasibleError, MyExit,
+    from .errors import (FlowInfeasibleError, MyExit,
                                          report_my_exit)
     asm = Assembler(cfg)
     try:

@@ -22,7 +22,7 @@ Semantics preserved from the reference:
 
 import numpy as np
 
-from metagenomics_tpu.io.fastx import fastx_records, fastx_pairs
+from .io.fastx import fastx_records, fastx_pairs
 from .ops import packing
 
 
@@ -328,7 +328,7 @@ class Dataset:
             with open(path, "rb") as f:
                 data = f.read()
         except OSError:
-            from metagenomics_tpu.errors import MyExit
+            from .errors import MyExit
             raise MyExit("Unable to open file: " + path) from None
         if not data.startswith(b"@") or not data.endswith(b"\n"):
             return None
@@ -356,7 +356,7 @@ class Dataset:
             with open(path, "rb") as f:
                 data = f.read()
         except OSError:
-            from metagenomics_tpu.errors import MyExit
+            from .errors import MyExit
             # reference: MYEXIT("Unable to open file: ...") (Dataset.cpp:117)
             raise MyExit("Unable to open file: " + path) from None
         if not data.startswith(b">"):

@@ -12,7 +12,7 @@ interior manifests match the reference's.
 import numpy as np
 
 from ..ops.overlap import CandidateBatch, verify_candidates
-from metagenomics_tpu.utils.stdsort import std_sort
+from ..utils.stdsort import std_sort
 from .core import Edge
 
 UNEXPLORED, EXPLORED, EXPLORED_MARKED = 0, 1, 2
@@ -148,7 +148,7 @@ class BuildMixin:
         contraction) in the native C++ engine — the fast path when device
         interconnect bandwidth is poor.  Returns False if unavailable."""
         ds = self.ds
-        from metagenomics_tpu import native
+        from .. import native
         mixed = ds.longest_read_length != ds.shortest_read_length
         res = native.assemble_native(
             ds.lengths, ds.codes_fwd, ds.codes_rev,
@@ -205,7 +205,7 @@ class BuildMixin:
                       and not os.environ.get("MGTPU_NO_NATIVE"))
 
         if use_native and hasattr(pipeline, "stream_canon"):
-            from metagenomics_tpu import native
+            from .. import native
             if native.get_lib() is not None:
                 canon = pipeline.stream_canon(check_cont=mixed)
                 if canon is not None and self._build_from_canon(
@@ -215,7 +215,7 @@ class BuildMixin:
         counts, r2, meta = pipeline.stream(check_cont=mixed)
 
         if use_native:
-            from metagenomics_tpu import native
+            from .. import native
             res = native.build_graph_stream(
                 ds.lengths, counts, r2, meta, mixed, self.cfg.dead_end_length)
             if res is not None:
@@ -268,7 +268,7 @@ class BuildMixin:
         import threading
         ds = self.ds
         mixed = ds.longest_read_length != ds.shortest_read_length
-        from metagenomics_tpu import native
+        from .. import native
         if native.get_lib() is None:
             return False
         from ..ops.device_overlap import (DeviceOverlapPipeline,
@@ -349,7 +349,7 @@ class BuildMixin:
         containment was resolved ON DEVICE (ops/device_overlap._cont_canon),
         so this only replays the logs and materializes the result.  Returns
         False if the native replay is unavailable."""
-        from metagenomics_tpu import native
+        from .. import native
         ds = self.ds
         counts, words, supers, firsthit = canon
         res = native.build_graph_stream_canon_words(
@@ -436,7 +436,7 @@ class BuildMixin:
         import os
         if (getattr(self.cfg, "use_native_build", True)
                 and not os.environ.get("MGTPU_NO_NATIVE")):
-            from metagenomics_tpu import native
+            from .. import native
             res = native.build_graph_native(
                 ds.lengths, (ds.super_read_id != 0).astype(np.uint8),
                 starts, cand[0], cand[1].astype(np.int8), cand[2],

@@ -406,7 +406,7 @@ class GraphCore:
         """Sort each adjacency by destination id (OverlapGraph.cpp:2799-2808).
         std::sort semantics: tie order (parallel edges) must match libstdc++
         introsort, not input order."""
-        from metagenomics_tpu.utils.stdsort import std_sort
+        from ..utils.stdsort import std_sort
         for lst in self.adj:
             if lst:
                 std_sort(lst, lambda a, b: a.destination < b.destination)
@@ -562,7 +562,7 @@ class GraphCore:
         # std::sort ascending by offset, then emitted in reverse iteration
         # order (OverlapGraph.cpp:478-479).  Tied offsets must follow
         # libstdc++ introsort order, hence the behavioral std::sort clone.
-        from metagenomics_tpu.utils.stdsort import std_sort
+        from ..utils.stdsort import std_sort
         std_sort(contig_edges, lambda a, b: a.offset < b.offset)
         contig_edges.reverse()
         total = 0

@@ -15,7 +15,7 @@ file (OverlapGraph.cpp:1547-1568).  The independent exact SSP solver
 """
 
 from .core import clocked
-from metagenomics_tpu.cs2replay import CS2Error, solve_cs2
+from ..cs2replay import CS2Error, solve_cs2
 
 
 class FlowMixin:
@@ -94,8 +94,8 @@ class FlowMixin:
             # nonzero flows printed in instance arc order (our own
             # deterministic format — byte-parity with a CS2 run is
             # explicitly not a goal here, see LICENSES.md)
-            from metagenomics_tpu.errors import FlowInfeasibleError
-            from metagenomics_tpu.mincostflow import solve_min_cost_flow
+            from ..errors import FlowInfeasibleError
+            from ..mincostflow import solve_min_cost_flow
             self.log("Calling clean min-cost-flow solver")
             try:
                 flows = solve_min_cost_flow(v, arcs)
@@ -114,7 +114,7 @@ class FlowMixin:
                 # "Error <n>" to stderr and exits with that code
                 # (cs2.h:346); raise the typed error — the CLI renders it
                 # (ADVICE r4: library embedders can catch it).
-                from metagenomics_tpu.errors import FlowInfeasibleError
+                from ..errors import FlowInfeasibleError
                 raise FlowInfeasibleError(exc.code)
             self.log("CS2 finished")
 

@@ -364,7 +364,7 @@ class MatePairMixin:
                         supports.append(ps)
                         sup_index[(id(ek), id(ek1))] = ps
 
-        from metagenomics_tpu.utils.stdsort import std_sort
+        from ..utils.stdsort import std_sort
         std_sort(supports, lambda a, b: a.support > b.support)
 
         merged = 0

@@ -75,7 +75,7 @@ class ScaffoldMixin:
                     supports.append(ps)
                     sup_index[(id(e1.reverse), id(e2))] = ps
 
-        from metagenomics_tpu.utils.stdsort import std_sort
+        from ..utils.stdsort import std_sort
         std_sort(supports, lambda a, b: a.support > b.support)
 
         merged = 0

@@ -188,7 +188,7 @@ def simulate(ds, min_overlap):
 
 
 def _simulate_native(ds, l, p):
-    from metagenomics_tpu import native
+    from . import native
     import ctypes
     lib = native.get_lib()
     if lib is None or not hasattr(lib, "mg_hashstats"):

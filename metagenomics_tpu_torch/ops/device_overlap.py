@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from .window_hash import MASK32, window_hashes
+from .window_hash import MASK32, window_hashes, window_hashes_at
 
 PAD_HASH = 0xFFFFFFFF
 
@@ -219,17 +219,20 @@ def _setup_kernel(pf, lengths, hash_len, w, wp, lmax):
                          torch.nn.functional.pad(pr, pad)], dim=0)
 
     hf = window_hashes(codes_fwd, hash_len)
-    hr = window_hashes(flipped, hash_len)
 
     n = hf.shape[0] - 1                      # row 0 is the unused dummy
     suf = (lengths[1:] - hash_len).to(_I64)
     k0 = hf[1:, 0]
     k1 = torch.gather(hf[1:], 1, suf[:, None])[:, 0]
     # flipped layout: the RC prefix window sits at column lmax - len, the
-    # RC suffix window at the (static) last column lmax - hash_len
-    k2 = torch.gather(hr[1:], 1, (lmax - lengths[1:]).to(_I64)[:, None])[:, 0]
-    k3 = hr[1:, lmax - hash_len]
-    keys = torch.stack([k0, k1, k2, k3], dim=1).reshape(-1)
+    # RC suffix window at the (static) last column lmax - hash_len; only
+    # those two reverse-strand windows are hashed (QC keeps reads longer
+    # than hash_len + 1, so both starts lie in [0, lmax - hash_len])
+    rstarts = torch.stack([lmax - lengths[1:].to(_I64),
+                           torch.full((n,), lmax - hash_len, dtype=_I64,
+                                      device=dev)], dim=1)
+    k23 = window_hashes_at(flipped[1:], hash_len, rstarts)
+    keys = torch.cat([k0[:, None], k1[:, None], k23], dim=1).reshape(-1)
     rid = torch.arange(1, n + 1, dtype=_I64, device=dev).repeat_interleave(4)
     orient = torch.arange(4, dtype=_I64, device=dev).repeat(n)
     sk, perm = torch.sort(keys, stable=True)

@@ -7,11 +7,14 @@ port holds 32-bit unsigned values zero-extended in int64 tensors: torch's
 uint32 supports few ops, and int64 keeps multiplication mod 2^32 and the
 unsigned sort order exact.
 
-window_hashes() dispatches on the tensor's device: a CPU tensor goes to
-window_hashes_torch (the plain version), a CUDA tensor to the hand-written
-kernel in csrc/window_hash.cu, which is compiled with nvcc into
-build/torch_kernels/ at first use and loaded with ctypes.  There is no
-fallback from one to the other: a CUDA tensor gets the kernel or an error.
+window_hashes() hashes every window of every row; window_hashes_at()
+hashes k given windows of each row (the pipeline's reverse-strand keys).
+Each dispatches on the tensor's device: a CPU tensor goes to the plain
+version (window_hashes_torch, window_hashes_at_torch), a CUDA tensor to the
+hand-written kernels in csrc/window_hash.cu, which is compiled with nvcc
+into build/torch_kernels/ at first use and loaded with ctypes.  There is
+no fallback from one to the other: a CUDA tensor gets a kernel or an
+error.
 """
 
 import ctypes
@@ -37,8 +40,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# kernel launches since the last reset (the main path must show > 0)
+# kernel launches since the last reset (the main path must show > 0):
+# window_hash_launch and window_hash_at_launch
 launches = 0
+at_launches = 0
 
 _lib = None
 _lock = threading.Lock()
@@ -64,6 +69,42 @@ def window_hashes_torch(codes, hash_len):
     w2 = torch.zeros_like(w1)
     for k in range(l):
         t = c[:, k:k + npos]
+        w1 += t * pow(_B1, l - 1 - k, 1 << 32)
+        w2 += t * pow(_B2, l - 1 - k, 1 << 32)
+    return mul32(w1 & MASK32, _M1) ^ mul32(w2 & MASK32, _M2)
+
+
+def _check_at(codes, hash_len, starts):
+    """Shapes and range of window_hashes_at's arguments; raises on a start
+    outside [0, lmax - hash_len] (one device-to-host read on a card)."""
+    if codes.dim() != 2 or starts.dim() != 2 or \
+            starts.shape[0] != codes.shape[0]:
+        raise ValueError("need codes [N, lmax] and starts [N, k], got %s and "
+                         "%s" % (tuple(codes.shape), tuple(starts.shape)))
+    if starts.dtype != torch.int64 or starts.device != codes.device:
+        raise ValueError("starts must be int64 on %s, got %s on %s"
+                         % (codes.device, starts.dtype, starts.device))
+    lmax = codes.shape[1]
+    if not 1 <= hash_len <= lmax:
+        raise ValueError("need 1 <= hash_len (%d) <= lmax (%d)"
+                         % (hash_len, lmax))
+    if starts.numel():
+        lo, hi = (int(v) for v in torch.aminmax(starts))
+        if lo < 0 or hi > lmax - hash_len:
+            raise ValueError("window start out of range [0, %d]: %d..%d"
+                             % (lmax - hash_len, lo, hi))
+
+
+def window_hashes_at_torch(codes, hash_len, starts):
+    """Plain PyTorch version of window_hashes_at: out[r, i] equals
+    window_hashes_torch(codes, hash_len)[r, starts[r, i]], summed exactly
+    in int64 one window base at a time."""
+    _check_at(codes, hash_len, starts)
+    l = hash_len
+    w1 = torch.zeros(starts.shape, dtype=torch.int64, device=codes.device)
+    w2 = torch.zeros_like(w1)
+    for k in range(l):
+        t = (torch.gather(codes, 1, starts + k).to(torch.int64) & 3) + 1
         w1 += t * pow(_B1, l - 1 - k, 1 << 32)
         w2 += t * pow(_B2, l - 1 - k, 1 << 32)
     return mul32(w1 & MASK32, _M1) ^ mul32(w2 & MASK32, _M2)
@@ -112,28 +153,41 @@ def _load():
             lib = ctypes.CDLL(build_library())
             lib.window_hash_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.c_void_p]
             lib.window_hash_launch.restype = ctypes.c_int
+            lib.window_hash_at_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+            lib.window_hash_at_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def _check_codes(codes, name):
+    if codes.device.type != "cuda":
+        raise ValueError("%s needs a CUDA tensor, got %s"
+                         % (name, codes.device))
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("codes must be a 2-D uint8 tensor, got %s %s"
+                         % (codes.dtype, tuple(codes.shape)))
+    if not codes.is_contiguous():
+        raise ValueError("codes must be contiguous")
+    if codes.shape[1] >= MAX_LMAX:
+        raise ValueError("lmax (%d) must be < %d"
+                         % (codes.shape[1], MAX_LMAX))
 
 
 def window_hashes_cuda(codes, hash_len):
     """Launch the CUDA kernel on a uint8 [N, lmax] CUDA tensor; returns the
     int64 [N, npos] hashes (equal to window_hashes_torch bit for bit)."""
     global launches
-    if codes.device.type != "cuda":
-        raise ValueError("window_hashes_cuda needs a CUDA tensor, got %s"
-                         % codes.device)
-    if codes.dtype != torch.uint8 or codes.dim() != 2:
-        raise ValueError("codes must be a 2-D uint8 tensor, got %s %s"
-                         % (codes.dtype, tuple(codes.shape)))
-    if not codes.is_contiguous():
-        raise ValueError("codes must be contiguous")
+    _check_codes(codes, "window_hashes_cuda")
     n, lmax = codes.shape
-    if not 1 <= hash_len <= lmax < MAX_LMAX:
-        raise ValueError("need 1 <= hash_len (%d) <= lmax (%d) < %d"
-                         % (hash_len, lmax, MAX_LMAX))
+    if not 1 <= hash_len <= lmax:
+        raise ValueError("need 1 <= hash_len (%d) <= lmax (%d)"
+                         % (hash_len, lmax))
     out = torch.empty((n, lmax - hash_len + 1), dtype=torch.int64,
                       device=codes.device)
     if n == 0:
@@ -141,12 +195,38 @@ def window_hashes_cuda(codes, hash_len):
     lib = _load()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.window_hash_launch(codes.data_ptr(), out.data_ptr(), n,
-                                     lmax, hash_len, stream)
+        err = lib.window_hash_launch(
+            codes.data_ptr(), out.data_ptr(), n, lmax, hash_len,
+            pow(_B1, hash_len, 1 << 32), pow(_B2, hash_len, 1 << 32), stream)
     if err != 0:
         raise RuntimeError("window_hash kernel launch failed: CUDA error %d"
                            % err)
     launches += 1
+    return out
+
+
+def window_hashes_at_cuda(codes, hash_len, starts):
+    """Launch window_hash_at on a uint8 [N, lmax] CUDA tensor and int64
+    starts [N, k]; returns the int64 [N, k] hashes at those starts (equal
+    to window_hashes_at_torch bit for bit)."""
+    global at_launches
+    _check_codes(codes, "window_hashes_at_cuda")
+    _check_at(codes, hash_len, starts)
+    starts = starts.contiguous()
+    n, lmax = codes.shape
+    out = torch.empty(starts.shape, dtype=torch.int64, device=codes.device)
+    if out.numel() == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.window_hash_at_launch(
+            codes.data_ptr(), starts.data_ptr(), out.data_ptr(), n, lmax,
+            hash_len, starts.shape[1], stream)
+    if err != 0:
+        raise RuntimeError("window_hash_at kernel launch failed: CUDA error "
+                           "%d" % err)
+    at_launches += 1
     return out
 
 
@@ -157,5 +237,17 @@ def window_hashes(codes, hash_len):
         return window_hashes_torch(codes, hash_len)
     if codes.device.type == "cuda":
         return window_hashes_cuda(codes, hash_len)
+    raise ValueError("no window-hash implementation for device %s"
+                     % codes.device)
+
+
+def window_hashes_at(codes, hash_len, starts):
+    """[N, k] window hashes of uint8 codes [N, lmax] at int64 starts
+    [N, k] on codes' device: the plain version for a CPU tensor, the CUDA
+    kernel for a CUDA one.  Raises on a start outside [0, lmax - l]."""
+    if codes.device.type == "cpu":
+        return window_hashes_at_torch(codes, hash_len, starts)
+    if codes.device.type == "cuda":
+        return window_hashes_at_cuda(codes, hash_len, starts)
     raise ValueError("no window-hash implementation for device %s"
                      % codes.device)

@@ -29,10 +29,19 @@ def _quiet(*a, **k):
 
 @pytest.fixture
 def native_lib():
-    """The native library, loaded in the test (not at collection).  The
-    reference loader caches a failed first build for the life of the
-    process, and concurrent first builds can fail (ROADMAP section 3);
-    once another process's build has landed a second try loads it."""
+    """The port's native library, loaded in the test (not at collection);
+    its loader builds under a lock, so concurrent first builds all load."""
+    from metagenomics_tpu_torch import native
+    assert native.get_lib() is not None, "the native library does not build"
+    return native
+
+
+@pytest.fixture
+def jax_native_lib():
+    """The JAX package's native library.  The reference loader caches a
+    failed first build for the life of the process, and concurrent first
+    builds can fail (ROADMAP section 3); once another process's build has
+    landed a second try loads it."""
     from metagenomics_tpu import native
     for _ in range(3):
         if native.get_lib() is not None:
@@ -40,7 +49,7 @@ def native_lib():
         native._tried = False
         time.sleep(2)
     lib = native.get_lib()
-    assert lib is not None, "the native library does not build"
+    assert lib is not None, "the reference native library does not build"
     return native
 
 
@@ -70,12 +79,13 @@ def _mkreads(tmp_path, n=6000, glen=60_000, L=100, seed=9):
 
 def _graph(pkg, pe, se, min_overlap):
     if pkg == "jax":
+        from metagenomics_tpu.config import AssemblerConfig
         from metagenomics_tpu.dataset import Dataset
         from metagenomics_tpu.graph import OverlapGraph
     else:
+        from metagenomics_tpu_torch.config import AssemblerConfig
         from metagenomics_tpu_torch.dataset import Dataset
         from metagenomics_tpu_torch.graph import OverlapGraph
-    from metagenomics_tpu.config import AssemblerConfig
     ds = Dataset(list(pe), list(se), min_overlap, log=_quiet)
     cfg = AssemblerConfig(min_overlap=min_overlap, paired_end_files=list(pe),
                           single_end_files=list(se))
@@ -123,7 +133,7 @@ def _hybrid(pkg, se, frac, native, monkeypatch):
     return _saved(ds, graph)
 
 
-def _hybrid_case(se, frac, native, monkeypatch):
+def _hybrid_case(se, frac, native, jax_native, monkeypatch):
     monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
     got = _hybrid("torch", se, frac, native, monkeypatch)
     ds, graph = _graph("torch", [], [se], 40)
@@ -131,20 +141,24 @@ def _hybrid_case(se, frac, native, monkeypatch):
     want = _saved(ds, graph)
     assert got[2] == want[2], "supers differ from the native engine"
     assert got[0] == want[0] and len(got[0]) > 0
-    assert got == _hybrid("jax", se, frac, native, monkeypatch)
+    assert got == _hybrid("jax", se, frac, jax_native, monkeypatch)
 
 
 @pytest.mark.parametrize("frac", [0.25, 0.5, 0.85])
-def test_hybrid_unitig_equal(tmp_path, frac, native_lib, monkeypatch):
-    _hybrid_case(_mkreads(tmp_path), frac, native_lib, monkeypatch)
+def test_hybrid_unitig_equal(tmp_path, frac, native_lib, jax_native_lib,
+                             monkeypatch):
+    _hybrid_case(_mkreads(tmp_path), frac, native_lib, jax_native_lib,
+                 monkeypatch)
 
 
 @pytest.mark.parametrize("name,frac", [
     ("se_mixlen.fasta", 0.5), ("se_mixlen.fasta", 0.9),
     ("se_heap.fasta", 0.7)])
-def test_hybrid_mixed_lengths(name, frac, native_lib, monkeypatch):
+def test_hybrid_mixed_lengths(name, frac, native_lib, jax_native_lib,
+                              monkeypatch):
     """Containment resolved globally across the shards."""
-    _hybrid_case(os.path.join(GOLDEN, name), frac, native_lib, monkeypatch)
+    _hybrid_case(os.path.join(GOLDEN, name), frac, native_lib,
+                 jax_native_lib, monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -198,7 +212,7 @@ def test_auto_rule(device, n_cards, engine):
 def _engine_run(monkeypatch, engine, se, no_native=False):
     """Assembler._build_engine on a data set; returns the engine that
     built the graph and the .unitig bytes."""
-    from metagenomics_tpu.config import AssemblerConfig
+    from metagenomics_tpu_torch.config import AssemblerConfig
     from metagenomics_tpu_torch.assembler import Assembler
     monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine)
     if no_native:

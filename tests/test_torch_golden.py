@@ -1,8 +1,8 @@
 """The port's CLI (python -m metagenomics_tpu_torch.cli, device and hybrid
 engines on the CPU) against the reference assembler's golden artifacts: all
 12 staged artifacts byte-equal and the normalized log equal, for the nine
-golden configs and the -s resume; one run proves the port never imports
-jax.  The host engine's runs are in tests/test_torch_golden_host.py."""
+golden configs and the -s resume; two runs (device and hybrid) prove the
+port imports neither jax nor the JAX package.  The host engine's runs are in tests/test_torch_golden_host.py."""
 
 import os
 import shutil
@@ -41,8 +41,10 @@ ARTIFACTS = [
     "graph3.gdl", "contigs3.fasta", "graph4.gdl", "contigs4.fasta",
 ]
 
-# the CLI with jax made unimportable: any `import jax` raises ImportError
+# the CLI with jax and the JAX package made unimportable: any
+# `import jax` or `import metagenomics_tpu[.x]` raises ImportError
 _NO_JAX = ("import sys; sys.modules['jax'] = None; "
+           "sys.modules['metagenomics_tpu'] = None; "
            "from metagenomics_tpu_torch.cli import main; main(sys.argv[1:])")
 
 
@@ -102,21 +104,31 @@ def test_resume_from_unitig(tmp_path):
                                   "log_resume.txt"), "pe_small/-s")
 
 
-def test_cli_never_imports_jax(tmp_path):
-    """A full run on the mixed-length set (on-device containment,
-    _cont_canon) with jax unimportable."""
-    proc = _run(tmp_path, CONFIGS["se_mixlen"], no_jax=True)
+def _no_jax_run(tmp_path, engine):
+    proc = _run(tmp_path, CONFIGS["se_mixlen"], no_jax=True, engine=engine)
     _check_artifacts(tmp_path, "se_mixlen")
     assert_log_equal(proc.stdout,
                      os.path.join(GOLDEN, "out", "se_mixlen", "log.txt"),
-                     "se_mixlen/no-jax")
+                     "se_mixlen/no-jax/%s" % engine)
+
+
+def test_cli_never_imports_jax(tmp_path):
+    """A full run on the mixed-length set (on-device containment,
+    _cont_canon) with jax and metagenomics_tpu unimportable."""
+    _no_jax_run(tmp_path, "device")
+
+
+def test_cli_never_imports_jax_hybrid(tmp_path):
+    """The same under the hybrid engine: the port's own native library
+    scans the CPU shard and replays the device shard."""
+    _no_jax_run(tmp_path, "hybrid")
 
 
 @pytest.mark.parametrize("engine", ["sharded"])
 def test_unported_engines_raise(engine, monkeypatch):
     """Engines the port does not run yet name their ROADMAP item."""
-    from metagenomics_tpu.config import AssemblerConfig
     from metagenomics_tpu_torch.assembler import Assembler
+    from metagenomics_tpu_torch.config import AssemblerConfig
     monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Assembler(AssemblerConfig())._build_engine(graph=None)
