@@ -402,30 +402,15 @@ def engine_run(torch, window_hash, args, workdir, engine, card):
 
 
 def timed_record(torch, fns, reps, bound_ms, bound_by, nbytes, label, card):
-    """Time kernel vs plain (and any other entry of fns, e.g. the wrapper);
-    print each beside the bound and the kernel's share of it."""
+    """Time the kernel's wrapper vs the plain version in turns; print both
+    beside the bound and the kernel's share of it."""
     ms = time_turns(torch, fns, reps)
-    log("  %s [%s]: %s, bound %.6f ms (%s: %d bytes), kernel at %.1f%% of "
-        "the bound"
-        % (label, card, ", ".join("%s %.6f ms" % kv for kv in ms.items()),
-           bound_ms, bound_by, nbytes, 100 * bound_ms / ms["kernel"]))
+    log("  %s [%s]: plain %.6f ms, kernel %.6f ms, bound %.6f ms (%s: %d "
+        "bytes), kernel at %.1f%% of the bound"
+        % (label, card, ms["plain"], ms["kernel"], bound_ms, bound_by,
+           nbytes, 100 * bound_ms / ms["kernel"]))
     return {"ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            **{k + "_ms": v for k, v in ms.items()
-               if k not in ("kernel", "plain")}}
-
-
-def raw_at_launch(torch, window_hash, codes, l, starts):
-    """window_hash_at's kernel alone: the wrapper's launch without its
-    range check (a device-to-host read) and without its counter."""
-    out = torch.empty(starts.shape, dtype=torch.int64, device=codes.device)
-    err = window_hash._load().window_hash_at_launch(
-        codes.data_ptr(), starts.data_ptr(), out.data_ptr(), codes.shape[0],
-        codes.shape[1], l, starts.shape[1],
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise SystemExit("window_hash_at launch failed: CUDA error %d" % err)
-    return out
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def real_size_phase(torch, window_hash, tmp, card):
@@ -497,16 +482,12 @@ def real_size_phase(torch, window_hash, tmp, card):
             "window_hash at [%d, %d], l=%d" % (rows, lmax, hl), card)
     bound_ms, bound_by, nbytes = at_bound(torch, starts, l)
     rev = flipped[1:]
-    if not torch.equal(raw_at_launch(torch, window_hash, rev, l, starts),
-                       window_hash.window_hashes_at_torch(rev, l, starts)):
-        raise SystemExit("window_hash_at's raw launch disagrees")
-    # ms: the kernel alone; wrapper_ms: what the main path pays per call
+    # the wrapper as the main path calls it: its range check reads the
+    # starts' min and max back to the host before the launch
     at = timed_record(
         torch,
         {"plain": lambda: window_hash.window_hashes_at_torch(rev, l, starts),
-         "kernel": lambda: raw_at_launch(torch, window_hash, rev, l, starts),
-         "wrapper": lambda: window_hash.window_hashes_at_cuda(rev, l,
-                                                              starts)},
+         "kernel": lambda: window_hash.window_hashes_at_cuda(rev, l, starts)},
         20, bound_ms, bound_by, nbytes,
         "window_hash_at at [%d, %d] x [%d, 2], l=%d"
         % (rows - 1, lmax, rows - 1, l), card)

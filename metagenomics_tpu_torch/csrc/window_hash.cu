@@ -40,10 +40,10 @@
 //    lane holds a pair, and writes the pair as one 16-byte __stcs store
 //    (tile starts are even, so every pair is 16-byte aligned).
 //
-// Tuned on an H100 (bench_window_hash.py): the word loads and the
-// multiply-high took 9-27% off the first version of this design; 36, 56
-// and 110 KB of shared memory a block and 128 or 512 threads moved it by
-// less than 5% or made it slower.
+// Tuned on an H100 (variants timed in turns with it; PERF.md): the word
+// loads and the multiply-high took 9-27% off the first version of this
+// design; 36, 56 and 110 KB of shared memory a block and 128 or 512
+// threads moved it by less than 5% or made it slower.
 //
 // window_hash_at is gather-shaped: per output l bytes of one row, so it
 // stages tiles the same way and runs Horner's rule over the staged bytes.

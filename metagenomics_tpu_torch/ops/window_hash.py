@@ -89,7 +89,7 @@ def _check_at(codes, hash_len, starts):
         raise ValueError("need 1 <= hash_len (%d) <= lmax (%d)"
                          % (hash_len, lmax))
     if starts.numel():
-        lo, hi = (int(v) for v in torch.aminmax(starts))
+        lo, hi = torch.stack(torch.aminmax(starts)).tolist()
         if lo < 0 or hi > lmax - hash_len:
             raise ValueError("window start out of range [0, %d]: %d..%d"
                              % (lmax - hash_len, lo, hi))
