@@ -29,12 +29,24 @@ Phases (any failure exits non-zero; nothing is caught):
      device memory, and each kernel's and plain version's time at the
      main path's shapes (window_hash also at l = 15 and 63) beside its
      bound and its share of the bound, with the card's name and power
-     limit.
+     limit;
+  5. sharded: the sharded engine (parallel/) on cuda:0, its shards held in
+     one process (in-process meshes of cuda:0 repeated), and over a
+     one-rank NCCL process group: the dry run over every (dp, ix) split of
+     8 shards (all 12 artifacts equal the device engine's); the nine
+     golden configs at (4, 2) (artifacts + normalized log); se_1m at
+     (2, 2), byte-equal to phase 4's native run, with its phase times,
+     peak device memory and collective ledger per phase; and the CLI on
+     pe_hard in a subprocess that joins an NCCL group of one rank
+     (MGTPU_COORDINATOR / MGTPU_NUM_PROCESSES / MGTPU_PROCESS_ID), equal
+     to golden.  Shards that share one card say nothing about scaling.
 
 Each kernel's launch counter is set to 0 just before each run of the CLI
 and read just after it; a device or hybrid run (one that did not fall
 back) that did not launch each kernel fails the smoke, and a se_1m device
-or hybrid run must launch each exactly once.  The main path is phase 4's
+or hybrid run must launch each exactly once, a sharded run exactly once a
+shard (dp * ix; the dry run's sweep is checked in total).  The main path
+is phase 4's
 `auto` (hybrid) run.  The smoke fails if jax or any module of the JAX
 package (metagenomics_tpu) was imported.  The last two lines are the
 kernels record and {"ok": true, "device": ...}.  Exits non-zero without
@@ -258,16 +270,17 @@ def _in_dir(path, env):
                 os.environ[k] = v
 
 
-def run_cli(args, workdir, engine):
+def run_cli(args, workdir, engine, mesh=None):
     """The port's CLI in this process (so its kernel launches are
-    counted), stdout to workdir/log.txt.  Returns (Assembler, log)."""
+    counted), stdout to workdir/log.txt, with the sharded engine's mesh
+    if one is given.  Returns (Assembler, log)."""
     from metagenomics_tpu_torch import cli
     os.makedirs(workdir, exist_ok=True)
     argv = [cli.__file__, *args, "-f", "t_", "-l", str(MIN_OVERLAP)]
     env = {"MGTPU_OVERLAP_ENGINE": engine, "MGTPU_TORCH_DEVICE": "cuda"}
     with _in_dir(workdir, env), open("log.txt", "w") as f, \
             contextlib.redirect_stdout(f):
-        asm = cli.main(argv)
+        asm = cli.main(argv, mesh)
     return asm, open(os.path.join(workdir, "log.txt")).read()
 
 
@@ -291,34 +304,42 @@ def read_counts(window_hash):
             "window_hash_at": window_hash.at_launches}
 
 
+def golden_run(window_hash, name, wd, engine, label, mesh=None):
+    """Golden config `name` through the CLI in wd, with the launch counters
+    set to 0 just before it and read just after; prints one line and
+    fails unless all 12 artifacts and the normalized log equal
+    golden/out/<name>/.  Returns (Assembler, launches by kernel)."""
+    from logutil import normalize_log
+    t0 = time.time()
+    reset_counts(window_hash)
+    asm, text = run_cli(GOLDEN_CONFIGS[name], wd, engine, mesh)
+    counts = read_counts(window_hash)
+    dt = time.time() - t0
+    bad = diff_artifacts(wd, "t_", os.path.join(GOLDEN, "out", name), "g_")
+    ref = open(os.path.join(GOLDEN, "out", name, "log.txt")).read()
+    log_ok = normalize_log(text) == normalize_log(ref)
+    log("  %-14s %-10s %6.2f s  ran %-7s  launches %s  12 artifacts %s, "
+        "log %s" % (label, name, dt, asm.engine, counts,
+                    "byte-equal" if not bad else "DIFFER %s" % bad,
+                    "equal" if log_ok else "DIFFERS"))
+    if bad or not log_ok:
+        raise SystemExit("golden config %s differs on the card (%s)"
+                         % (name, label))
+    return asm, counts
+
+
 def golden_phase(window_hash, tmp):
     log("== phase 3: golden configs, device, hybrid and host engines on "
         "cuda")
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from logutil import normalize_log
     launched = {}
     took = {}
     for engine in ("device", "hybrid", "host"):
         launched[engine] = dict.fromkeys(KERNELS, 0)
-        for name, args in GOLDEN_CONFIGS.items():
-            wd = os.path.join(tmp, "golden_%s_%s" % (engine, name))
-            t0 = time.time()
-            reset_counts(window_hash)
-            asm, text = run_cli(args, wd, engine)
-            counts = read_counts(window_hash)
-            dt = time.time() - t0
-            bad = diff_artifacts(wd, "t_", os.path.join(GOLDEN, "out", name),
-                                 "g_")
-            ref = open(os.path.join(GOLDEN, "out", name, "log.txt")).read()
-            log_ok = normalize_log(text) == normalize_log(ref)
-            log("  %-6s %-10s %6.2f s  ran %-6s  launches %s  "
-                "12 artifacts %s, log %s"
-                % (engine, name, dt, asm.engine, counts,
-                   "byte-equal" if not bad else "DIFFER %s" % bad,
-                   "equal" if log_ok else "DIFFERS"))
-            if bad or not log_ok:
-                raise SystemExit("golden config %s differs on the card with "
-                                 "the %s engine" % (name, engine))
+        for name in GOLDEN_CONFIGS:
+            asm, counts = golden_run(
+                window_hash, name,
+                os.path.join(tmp, "golden_%s_%s" % (engine, name)), engine,
+                engine)
             if asm.engine in ("device", "hybrid") and \
                     min(counts.values()) <= 0:
                 raise SystemExit("the %s run of %s did not launch every "
@@ -377,14 +398,14 @@ def time_turns(torch, fns, reps=10):
     return {k: v / (2 * reps) for k, v in total.items()}
 
 
-def engine_run(torch, window_hash, args, workdir, engine, card):
+def engine_run(torch, window_hash, args, workdir, engine, card, mesh=None):
     """One CLI run on cuda with the launch counters and the peak device
     memory reset just before it and read just after; prints its phase
     times.  Returns (Assembler, launches by kernel)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(window_hash)
-    asm, _ = run_cli(args, workdir, engine)
+    asm, _ = run_cli(args, workdir, engine, mesh)
     torch.cuda.synchronize()
     counts = read_counts(window_hash)
     peak = torch.cuda.max_memory_allocated()
@@ -394,11 +415,16 @@ def engine_run(torch, window_hash, args, workdir, engine, card):
            counts, peak))
     for k, v in asm.timings.items():
         log("    %-32s %.6f s" % (k, v))
-    if asm.engine in ("device", "hybrid") and \
-            counts != dict.fromkeys(KERNELS, 1):
-        raise SystemExit("the %s run launched %s, not each kernel once"
-                         % (asm.engine, counts))
+    want = shards(mesh) if asm.engine == "sharded" else 1
+    if asm.engine in ("device", "hybrid", "sharded") and \
+            counts != dict.fromkeys(KERNELS, want):
+        raise SystemExit("the %s run launched %s, not each kernel %d "
+                         "time(s)" % (asm.engine, counts, want))
     return asm, counts
+
+
+def shards(mesh):
+    return mesh.shape["dp"] * mesh.shape["ix"]
 
 
 def timed_record(torch, fns, reps, bound_ms, bound_by, nbytes, label, card):
@@ -501,13 +527,131 @@ def real_size_phase(torch, window_hash, tmp, card):
     ], by_path
 
 
+# phase 5's one-rank NCCL run: the port's CLI with jax and the JAX package
+# unimportable; prints the process group's backend and the launches
+NCCL_CLI = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["metagenomics_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import torch.distributed as dist
+from metagenomics_tpu_torch.cli import main
+from metagenomics_tpu_torch.ops import window_hash
+asm = main(sys.argv[2:])
+print("SHARDED_RUN " + json.dumps({
+    "backend": dist.get_backend(), "world": dist.get_world_size(),
+    "engine": asm.engine, "launches": {
+        "window_hash": window_hash.launches,
+        "window_hash_at": window_hash.at_launches}}))
+dist.destroy_process_group()
+"""
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(torch, window_hash, tmp, card):
+    """Phase 5; returns the se_1m (2, 2) run's launches by kernel."""
+    from metagenomics_tpu_torch.parallel import collectives, dryrun
+    from metagenomics_tpu_torch.parallel.mesh import make_mesh
+    log("== phase 5: sharded engine on cuda:0 (shards in one process, and "
+        "a one-rank NCCL group)")
+    log("  shards that share one card say nothing about scaling")
+    dev = torch.device("cuda", 0)
+
+    # 5.1: the dry run over every split of 8 shards; one device-engine run
+    # (1 launch each) and one sharded run a split (8 each)
+    reset_counts(window_hash)
+    t0 = time.time()
+    done = dryrun.dryrun_multichip(8, dev)
+    counts = read_counts(window_hash)
+    want = 1 + 8 * len(done)
+    log("  dryrun_multichip(8) on cuda:0: splits %s, 12 artifacts equal "
+        "the device engine's, %.2f s, launches %s" % (done, time.time() - t0,
+                                                     counts))
+    if done != [(8, 1), (4, 2), (2, 4), (1, 8)] or \
+            counts != dict.fromkeys(KERNELS, want):
+        raise SystemExit("the dry run swept %s with launches %s (want %d "
+                         "each)" % (done, counts, want))
+
+    # 5.2: the nine golden configs at (4, 2)
+    for name in GOLDEN_CONFIGS:
+        asm, counts = golden_run(
+            window_hash, name, os.path.join(tmp, "golden_sharded_%s" % name),
+            "sharded", "sharded (4, 2)",
+            make_mesh(dp=4, ix=2, devices=[dev] * 8))
+        if asm.engine != "sharded" or counts != dict.fromkeys(KERNELS, 8):
+            raise SystemExit("golden config %s under sharded (4, 2) ran %s "
+                             "with launches %s" % (name, asm.engine, counts))
+
+    # 5.3: se_1m at (2, 2), byte-equal to phase 4's native run
+    mesh = make_mesh(dp=2, ix=2, devices=[dev] * 4)
+    collectives.LEDGER.reset()
+    asm, launches = engine_run(
+        torch, window_hash, ["-se", "1", os.path.join(tmp, "reads_1m.fasta")],
+        os.path.join(tmp, "real_sharded"), "sharded", card, mesh)
+    if asm.engine != "sharded":
+        raise SystemExit("the se_1m sharded run ran %s" % asm.engine)
+    bad = diff_artifacts(os.path.join(tmp, "real_sharded"), "t_",
+                         os.path.join(tmp, "real_native"), "t_")
+    log("  12 artifacts sharded (2, 2) vs native: %s"
+        % ("byte-equal" if not bad else "DIFFER %s" % bad))
+    if bad:
+        raise SystemExit("1M-read artifacts differ between the sharded and "
+                         "the native engine: %s" % bad)
+    rep = collectives.LEDGER.report()
+    log("  collective ledger, se_1m at (2, 2) [%s]: payload %d bytes, "
+        "wire %d bytes, %.6f s at NVLink's %.3g B/s (a model: these shards "
+        "share one card and move nothing over NVLink)"
+        % (card, rep["total_payload_bytes"], rep["total_wire_bytes"],
+           rep["model"]["projected_nvlink_seconds"],
+           rep["model"]["nvlink_bytes_per_s"]))
+    for phase, rec in rep["phases"].items():
+        log("    %-10s x%d: %s" % (phase, rec["invocations"], ", ".join(
+            "%s/%s/%d %d bytes" % (c["op"], c["axis"], c["axis_size"],
+                                   c["payload_bytes"])
+            for c in rec["collectives"])))
+
+    # 5.4: the CLI over a one-rank NCCL process group
+    wd = os.path.join(tmp, "nccl_pe_hard")
+    os.makedirs(wd)
+    env = dict(os.environ, MGTPU_COORDINATOR="127.0.0.1:%d" % free_port(),
+               MGTPU_NUM_PROCESSES="1", MGTPU_PROCESS_ID="0",
+               MGTPU_OVERLAP_ENGINE="sharded", MGTPU_TORCH_DEVICE="cuda")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", NCCL_CLI, REPO, "cli",
+         *GOLDEN_CONFIGS["pe_hard"], "-f", "t_", "-l", str(MIN_OVERLAP)],
+        cwd=wd, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise SystemExit("the one-rank NCCL run failed (rc %d):\n%s%s"
+                         % (proc.returncode, proc.stdout[-3000:],
+                            proc.stderr[-3000:]))
+    run = json.loads(proc.stdout.split("SHARDED_RUN ")[1].splitlines()[0])
+    bad = diff_artifacts(wd, "t_", os.path.join(GOLDEN, "out", "pe_hard"),
+                         "g_")
+    log("  one-rank process group (CLI in a subprocess, %.2f s): backend "
+        "%s, world %d, engine %s, launches %s, 12 artifacts %s"
+        % (time.time() - t0, run["backend"], run["world"], run["engine"],
+           run["launches"], "byte-equal" if not bad else "DIFFER %s" % bad))
+    if run["backend"] != "nccl" or run["engine"] != "sharded" or bad or \
+            run["launches"] != dict.fromkeys(KERNELS, 1):
+        raise SystemExit("the one-rank NCCL run: %s, artifacts %s"
+                         % (run, bad or "equal"))
+    return launches
+
+
 def main():
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device available\n")
         return 2
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     from metagenomics_tpu_torch.ops import window_hash
 
     card = card_label()
@@ -517,6 +661,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         golden_phase(window_hash, tmp)
         records, by_path = real_size_phase(torch, window_hash, tmp, card)
+        by_path["sharded"] = sharded_phase(torch, window_hash, tmp, card)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "metagenomics_tpu"

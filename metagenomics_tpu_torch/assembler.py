@@ -17,27 +17,22 @@ from .graph import OverlapGraph
 from .index import OverlapIndex
 from .utils import PhaseTimer
 
-# engines of the reference that the port does not run yet, with the
-# ROADMAP item that ports each
-_NOT_PORTED = {
-    "sharded": "ROADMAP.md section 1 item 7 (parallel/* over "
-               "torch.distributed)",
-}
+def auto_engine(device_type, n_cards, world_size=1):
+    """The engine `auto` picks for the pipeline's device type, the number
+    of visible cards and the torch.distributed world size: the JAX
+    package's rule (metagenomics_tpu/assembler.py:63-71) with the card in
+    the TPU's place.
 
-
-def auto_engine(device_type, n_cards):
-    """The engine `auto` picks for the pipeline's device type and the
-    number of visible cards: the JAX package's rule
-    (metagenomics_tpu/assembler.py:63-77) with the card in the TPU's place.
-
-    A card puts the device to work: the hybrid engine (a native CPU scan of
-    reads [1, a) concurrent with the device shard [a, n]), which falls back
-    to the device pipeline itself where it does not apply.  Several cards
-    would take the sharded engine, which is not ported yet (ROADMAP
-    section 1 item 7), so meanwhile they run hybrid on the current card.
-    Any other device takes the native engine; under `auto` the device
-    pipeline runs if the native engine is unavailable.
+    Cards put the device to work: the sharded engine when the run has more
+    than one card (several visible in this process, or a world of more
+    than one rank), else the hybrid engine (a native CPU scan of reads
+    [1, a) concurrent with the device shard [a, n]), which falls back to
+    the device pipeline itself where it does not apply.  Any other device
+    takes the native engine; under `auto` the device pipeline runs if the
+    native engine is unavailable.
     """
+    if device_type == "cuda" and (n_cards > 1 or world_size > 1):
+        return "sharded"
     if device_type == "cuda" and n_cards >= 1:
         return "hybrid"
     return "native"
@@ -71,11 +66,15 @@ class Assembler:
                     canonical stream + native replay
           hybrid  — device shard + concurrent native CPU shard with exact
                     canonical merge (graph/build.py build_hybrid)
+          sharded — the (dp, ix) mesh pipeline (parallel/sharded.py):
+                    cfg.mesh, else one shard per visible card or per
+                    torch.distributed rank
           host    — host join (index.py) + device verify
           native  — full C++ engine (index/scan/verify/BFS) on the host
           auto    — the JAX package's choice (auto_engine)
         All produce byte-identical graphs (tests/test_torch_golden.py,
-        tests/test_torch_golden_host.py, tests/test_torch_engines.py).
+        tests/test_torch_golden_host.py, tests/test_torch_engines.py,
+        tests/test_torch_sharded.py).
         The engine that built the graph is left in self.engine ("device"
         when hybrid fell back to the device pipeline).
         """
@@ -91,17 +90,16 @@ class Assembler:
         from .ops.device_overlap import DeviceOverlapPipeline, torch_device
         engine = os.environ.get("MGTPU_OVERLAP_ENGINE",
                                 getattr(self.cfg, "overlap_engine", "auto"))
-        if engine in _NOT_PORTED:
-            raise NotImplementedError(
-                "overlap engine %r is not ported to torch yet: %s"
-                % (engine, _NOT_PORTED[engine]))
-        if engine not in ("auto", "native", "device", "hybrid", "host"):
+        if engine not in ("auto", "native", "device", "hybrid", "host",
+                          "sharded"):
             raise ValueError("unknown overlap engine %r" % engine)
         auto = engine == "auto"
         if auto:
             device = torch_device()
+            from .parallel.launcher import world_size
             engine = auto_engine(device.type, torch.cuda.device_count()
-                                 if device.type == "cuda" else 0)
+                                 if device.type == "cuda" else 0,
+                                 world_size())
         if engine == "native":
             if not os.environ.get("MGTPU_NO_NATIVE") and \
                     graph.build_full_native():
@@ -131,6 +129,11 @@ class Assembler:
         if engine == "host":
             graph.build_from_index(OverlapIndex(self.dataset,
                                                 self.cfg.min_overlap))
+        elif engine == "sharded":
+            from .parallel.sharded import ShardedOverlapPipeline
+            graph.build_from_pipeline(ShardedOverlapPipeline(
+                self.dataset, self.cfg.min_overlap, mesh=self.cfg.mesh,
+                device=device))
         else:
             graph.build_from_pipeline(DeviceOverlapPipeline(
                 self.dataset, self.cfg.min_overlap, device=device))

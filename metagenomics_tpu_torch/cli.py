@@ -4,8 +4,11 @@
     python -m metagenomics_tpu_torch.cli -pe N f1..fN -se N f1..fN \
         -f prefix -l minOverlap [-s]
 
-The overlap engine comes from MGTPU_OVERLAP_ENGINE (device by default) and
-its device from MGTPU_TORCH_DEVICE (cuda by default).
+The overlap engine comes from MGTPU_OVERLAP_ENGINE (auto by default) and
+its device from MGTPU_TORCH_DEVICE (cuda by default).  With
+MGTPU_COORDINATOR / MGTPU_NUM_PROCESSES / MGTPU_PROCESS_ID (or torchrun's
+variables) set, each process joins one torch.distributed process group
+first (parallel/launcher.py).
 """
 
 import sys
@@ -65,16 +68,24 @@ def parse_arguments(argv):
     return cfg
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Run the assembler on argv; returns the Assembler, whose timings
-    hold the phase times."""
+    hold the phase times.  `mesh` is the sharded engine's
+    AssemblerConfig.mesh, which has no command-line flag (nor has the
+    reference a mesh)."""
     argv = argv if argv is not None else sys.argv
     from .utils.timing import clock_start, clock_stop
     clk = clock_start("main", src=__file__)
     print("PRINTING ARGUMENTS")
     # the reference echoes each argv followed by a space (main.cpp:126)
     print("".join(a + " " for a in argv))
+    # multi-process: joins a torch.distributed process group when
+    # MGTPU_COORDINATOR / MGTPU_NUM_PROCESSES / MGTPU_PROCESS_ID (or
+    # torchrun's variables) are set; no-op otherwise
+    from .parallel.launcher import initialize_distributed
+    initialize_distributed()
     cfg = parse_arguments(argv)
+    cfg.mesh = mesh
     from .errors import (FlowInfeasibleError, MyExit,
                                          report_my_exit)
     asm = Assembler(cfg)

@@ -109,6 +109,17 @@ def _unpack_codes(words, lmax):
     return lanes.reshape(n, 16 * w)[:, :lmax].to(torch.uint8)
 
 
+def _rc_codes(codes, lengths):
+    """Reverse complement of uint8 code rows in the TRUE layout (data at
+    columns [0, len); positions >= length -> 0).  The reference's gather
+    clamps its index; here the clamp is explicit."""
+    lmax = codes.shape[1]
+    k = torch.arange(lmax, dtype=_I64, device=codes.device)[None, :]
+    src = torch.clamp(lengths.to(_I64)[:, None] - 1 - k, 0, lmax - 1)
+    g = torch.gather(codes, 1, src)
+    return torch.where(k < lengths[:, None], 3 - g, 0).to(torch.uint8)
+
+
 def _pack_codes_device(codes, w):
     n, lmax = codes.shape
     c = torch.nn.functional.pad(codes.to(_I64) & 3, (0, 16 * w - lmax))
@@ -144,8 +155,8 @@ def _verify_pairs(packed2, len1, len2, r1, j, r2, orient, hash_len, w,
 
     The reverse half is in the FLIPPED-PADDED layout (3 - fwd[:, ::-1]:
     data at columns [lmax - len, lmax), rev_lmax = lmax), whose window
-    starts shift by lmax - len2.  (The reference's true-RC layout, None,
-    serves only its sharded pipeline.)"""
+    starts shift by lmax - len2.  (The true-RC layout, rev_shift None,
+    serves the sharded pipeline, which calls _verify_windows directly.)"""
     nrows = packed2.shape[0] // 2
     rows1 = packed2[r1]
     is_rev = orient > 1
@@ -156,12 +167,16 @@ def _verify_pairs(packed2, len1, len2, r1, j, r2, orient, hash_len, w,
 
 
 def _verify_windows(rows1, rows2, len1, len2, j, orient, hash_len, w,
-                    qw_max, check_cont, rev_shift):
+                    qw_max, check_cont, rev_shift=None):
     """Exact packed-word verification of candidate pairs (edge mode:
     checkOverlap, OverlapGraph.cpp:354-383, seed included; containment
     mode: checkOverlapForContainedRead, :302-340; orientation and offset:
-    :550-557).  Returns (edge_ok, cont_ok, eo, eoff)."""
+    :550-557).  rev_shift, when given, is added to every rows2 window
+    start (the flipped-padded reverse layout); None means rows2 is in the
+    true layout.  Returns (edge_ok, cont_ok, eo, eoff)."""
     l = hash_len
+    if rev_shift is None:
+        rev_shift = 0
     is_pre = (orient == 0) | (orient == 2)
     wk16 = 16 * torch.arange(w, dtype=_I64, device=rows1.device)[None, :]
 

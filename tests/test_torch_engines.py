@@ -6,7 +6,8 @@ the contained-read marks (super_read_id) equal the native engine's and the
 JAX hybrid engine's, and every case proves that the hybrid path ran (the
 CPU scan returned a shard and the device pipeline probed from row a > 1).
 Host: the .unitig and sorted-reads bytes equal the JAX host engine's over
-the min_overlap sweep of tests/test_engine_lsweep.py."""
+the min_overlap sweep of tests/test_engine_lsweep.py.  The sharded engine's
+tests are tests/test_torch_sharded*.py and tests/test_torch_distributed.py."""
 
 import os
 import random
@@ -200,13 +201,17 @@ def test_host_engine_matches_jax(tmp_path, sweep_reads, min_overlap,
     assert (len(out["torch"][0]) > 0) == (min_overlap < 100)
 
 
-@pytest.mark.parametrize("device,n_cards,engine", [
-    ("cuda", 1, "hybrid"), ("cuda", 2, "hybrid"), ("cpu", 0, "native")])
-def test_auto_rule(device, n_cards, engine):
-    """metagenomics_tpu/assembler.py:63-77 with the card as the TPU; two
-    cards take hybrid until the sharded engine is ported."""
+@pytest.mark.parametrize("device,n_cards,world,engine", [
+    ("cuda", 1, 1, "hybrid"), ("cuda", 2, 1, "sharded"),
+    ("cuda", 1, 2, "sharded"), ("cpu", 0, 1, "native"),
+    ("cpu", 0, 2, "native")])
+def test_auto_rule(device, n_cards, world, engine):
+    """metagenomics_tpu/assembler.py:63-71 with the card as the TPU: more
+    than one card, visible in one process or as a torch.distributed world
+    of several ranks, takes the sharded engine; one card hybrid; the CPU
+    native."""
     from metagenomics_tpu_torch.assembler import auto_engine
-    assert auto_engine(device, n_cards) == engine
+    assert auto_engine(device, n_cards, world) == engine
 
 
 def _engine_run(monkeypatch, engine, se, no_native=False):

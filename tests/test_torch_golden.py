@@ -2,7 +2,8 @@
 engines on the CPU) against the reference assembler's golden artifacts: all
 12 staged artifacts byte-equal and the normalized log equal, for the nine
 golden configs and the -s resume; two runs (device and hybrid) prove the
-port imports neither jax nor the JAX package.  The host engine's runs are in tests/test_torch_golden_host.py."""
+port imports neither jax nor the JAX package.  The host engine's runs are in tests/test_torch_golden_host.py, the sharded engine's in
+tests/test_torch_sharded_golden.py."""
 
 import os
 import shutil
@@ -126,12 +127,25 @@ def test_cli_never_imports_jax_hybrid(tmp_path):
 
 @pytest.mark.parametrize("engine", ["sharded"])
 def test_unported_engines_raise(engine, monkeypatch):
-    """Engines the port does not run yet name their ROADMAP item."""
+    """Every engine of the reference is ported: `sharded` builds the graph
+    (its default mesh on the CPU is one shard), and a name the port does
+    not know raises and names it."""
     from metagenomics_tpu_torch.assembler import Assembler
     from metagenomics_tpu_torch.config import AssemblerConfig
+    from metagenomics_tpu_torch.dataset import Dataset
+    from metagenomics_tpu_torch.graph import OverlapGraph
+    monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Assembler(AssemblerConfig())._build_engine(graph=None)
+    se = _data("se_small.fasta")
+    cfg = AssemblerConfig(min_overlap=40, single_end_files=se)
+    asm = Assembler(cfg, log=lambda *a, **k: None)
+    asm.dataset = Dataset([], se, 40, log=asm.log)
+    graph = OverlapGraph(asm.dataset, cfg, log=asm.log)
+    asm._build_engine(graph)
+    assert asm.engine == engine and graph.number_of_edges > 0
+    monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine + "x")
+    with pytest.raises(ValueError, match=engine + "x"):
+        asm._build_engine(graph)
 
 
 def test_cuda_device_needs_a_card(monkeypatch):

@@ -3,8 +3,8 @@ port imports neither jax (the card's host does not have it) nor the JAX
 package.  Each copy must have the same AST as its original once every
 import statement is removed, so the two cannot drift apart; the native
 loader may differ only in _build_lib, and the native C++ source is
-byte-equal.  Every .py file of the port, and chip_smoke.py, names neither
-jax nor metagenomics_tpu in an import."""
+byte-equal.  Every .py file of the port, chip_smoke.py and
+multicard_smoke.py name neither jax nor metagenomics_tpu in an import."""
 
 import ast
 import glob
@@ -25,11 +25,12 @@ COPIES = ["dataset.py", "hashstats.py", "index.py", "config.py", "errors.py",
         "__init__", "core", "build", "simplify", "flow", "matepair",
         "scaffold", "genome_size", "matepair_graph")]
 
-# every .py file of the port, and the on-card check beside it
+# every .py file of the port, and the on-card checks beside it
 PORT_FILES = sorted(
     os.path.relpath(p, PORT)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-) + [os.path.join("..", "chip_smoke.py")]
+) + [os.path.join("..", "chip_smoke.py"),
+     os.path.join("..", "multicard_smoke.py")]
 
 # functions of ops/packing.py whose host half the port copies
 PACKING_FUNCS = ["ascii_to_codes", "codes_to_ascii",
