@@ -492,6 +492,14 @@ class DeviceOverlapPipeline:
     MAX_CAP = 1 << 23      # upper bound on a chunk's candidate buffer
 
     def __init__(self, dataset, min_overlap, row_lo=0, device=None):
+        self._configure(dataset, min_overlap, row_lo, device)
+        self._build_index(_upload_words(pack_codes_host(dataset.codes_fwd),
+                                        self.device))
+        self._probe()
+
+    def _configure(self, dataset, min_overlap, row_lo, device):
+        """Shapes, limits, read lengths on the device and the survivor
+        packing; no device work but the lengths' upload."""
         self.device = torch_device() if device is None else torch.device(
             device)
         self.ds = dataset
@@ -518,13 +526,25 @@ class DeviceOverlapPipeline:
         self.lengths = torch.from_numpy(
             ds.lengths.astype(np.int32)).to(self.device)
 
-        pf = _upload_words(pack_codes_host(ds.codes_fwd), self.device)
-        self.packed2, self.hf, self.sk, self.sid = _setup_kernel(
-            pf, self.lengths, self.hash_len, self.w, self.wp, lmax)
-        del pf
+        # survivor packing: one 32-bit word per survivor when
+        # (r2 bits + 4 flag/orient bits + offset bits) fit, else the
+        # (r2 int32, meta uint16) pair
+        self.off_bits = canon_off_bits(n1 - 1, lmax, min_overlap)
+        lens = ds.lengths[1:]
+        self.uniform_len = (int(lens[0])
+                            if len(lens) and (lens == lens[0]).all() else -1)
+        self._pad_cache = None
 
-        # probe join; the blocked partial sums keep every device-side
-        # accumulator < 2^31 even for pathologically repetitive inputs
+    def _build_index(self, pf):
+        """_setup_kernel on the uploaded forward words pf."""
+        self.packed2, self.hf, self.sk, self.sid = _setup_kernel(
+            pf, self.lengths, self.hash_len, self.w, self.wp, self.lmax)
+
+    def _probe(self):
+        """The probe join of reads >= row0 and its hit and candidate
+        totals (read back); the blocked partial sums keep every
+        device-side accumulator < 2^31 even for pathologically repetitive
+        inputs."""
         m = int(self.sk.shape[0])
         sum_block = 1 << max(3, min(12, (1 << 31).bit_length()
                                     - max(m, 1).bit_length() - 2))
@@ -535,14 +555,6 @@ class DeviceOverlapPipeline:
             hf_probe, len_probe, self.sk, self.hash_len, sum_block)
         self.h_total = int(h_total)
         self.grand = int(parts.cpu().numpy().sum(dtype=np.int64))
-
-        # survivor packing: one 32-bit word per survivor when
-        # (r2 bits + 4 flag/orient bits + offset bits) fit, else the
-        # (r2 int32, meta uint16) pair
-        self.off_bits = canon_off_bits(n1 - 1, lmax, min_overlap)
-        lens = ds.lengths[1:]
-        self.uniform_len = (int(lens[0])
-                            if len(lens) and (lens == lens[0]).all() else -1)
         self._pad_cache = None
 
     def _plan_chunks(self):
@@ -590,9 +602,10 @@ class DeviceOverlapPipeline:
                                                   device=dev)])))
         return self._pad_cache[1]
 
-    def _emit_chunks(self, check_cont, dedup):
+    def _emit_chunks(self, check_cont, dedup, download=True):
         """Run _emit2 over every chunk; returns ([(out, n_keep int)],
-        per-read survivor counts as int64 numpy)."""
+        per-read survivor counts as int64 numpy).  download=False reads
+        back only the n_keep scalars and leaves the counts on the device."""
         cap, nqt, chunks = self._plan_chunks()
         rk_pad, rleft_pad, rcnt_pad = self._padded(nqt)
         outs = []
@@ -606,12 +619,21 @@ class DeviceOverlapPipeline:
             outs.append((out, n_keep))
             kc_total = kc if kc_total is None else kc_total + kc
         outs = [(out, int(nk)) for out, nk in outs]
+        if not download:
+            return outs, kc_total
         return outs, kc_total.cpu().numpy().astype(np.int64)
 
-    def stream(self, check_cont=True):
+    def stream(self, check_cont=True, download=True):
         """Survivor stream in reference discovery order (read asc, j asc,
-        bucket order): (counts [n+1] int64, r2 int32, meta uint16)."""
-        outs, keep_counts = self._emit_chunks(check_cont, dedup=False)
+        bucket order): (counts [n+1] int64, r2 int32, meta uint16).
+
+        download=False runs every chunk's _emit2 but reads back only the
+        n_keep scalars, neither the survivors nor the per-read counts, and
+        returns None: the device-compute-only mode of the bench."""
+        outs, keep_counts = self._emit_chunks(check_cont, dedup=False,
+                                              download=download)
+        if not download:
+            return None
         if self.off_bits >= 0:
             r2, meta = self._unpack_words(_fetch_words(outs))
         else:

@@ -20,7 +20,8 @@ PORT = os.path.join(REPO, "metagenomics_tpu_torch")
 
 COPIES = ["dataset.py", "hashstats.py", "index.py", "config.py", "errors.py",
           "io/__init__.py", "io/fastx.py", "utils/stdsort.py",
-          "cs2replay.py", "mincostflow.py"] + [
+          "cs2replay.py", "mincostflow.py", "tools/__init__.py",
+          "tools/fac.py", "tools/format_fasta.py", "tools/shuffle.py"] + [
     "graph/%s.py" % m for m in (
         "__init__", "core", "build", "simplify", "flow", "matepair",
         "scaffold", "genome_size", "matepair_graph")]
