@@ -49,7 +49,17 @@ Phases (any failure exits non-zero; nothing is caught):
      run complete and print their times with the card label; the bench's
      kernel check passes; then the stage table (each device stage's time
      beside its least bytes and the card's measured copy bandwidth) on
-     phase 4's 1M reads, best of 3.
+     phase 4's 1M reads, best of 3;
+  7. fuzz and scale: the port's fuzzer (measure/pipefuzz.py) in this
+     process on seeds 7, 9 and 20 (random repeat-heavy sets of mixed read
+     lengths) in each mode (se, pe, mix: a -pe and a -se file) under the
+     device and hybrid engines on cuda:0, and one seed a mode under the
+     sharded engine at (2, 2); every run's 11 artifacts and rc must equal
+     the native engine's (native vs the reference binary is counted and
+     printed); then measure/scale.py at 200,000 reads (native, auto,
+     device, each a child process) must print equal artifacts, auto
+     resolved to hybrid, a peak RSS and the device runs' peak device
+     memory.
 
 Each kernel's launch counter is set to 0 just before each run of the CLI
 and read just after it; a device or hybrid run (one that did not fall
@@ -57,7 +67,8 @@ back) that did not launch each kernel fails the smoke, and a se_1m device
 or hybrid run must launch each exactly once, a sharded run exactly once a
 shard (dp * ix; the dry run's sweep is checked in total), and phase 6's
 bench path (stage table, run_once, device-only and hybrid runs) exactly
-four times.  The main path is phase 4's
+four times, and phase 7's fuzz runs once each a device or hybrid run and
+once a shard a sharded run.  The main path is phase 4's
 `auto` (hybrid) run.  The smoke fails if jax or any module of the JAX
 package (metagenomics_tpu) was imported.  The last two lines are the
 kernels record and {"ok": true, "device": ...}.  Exits non-zero without
@@ -119,6 +130,12 @@ REAL_GENOMES = [3_000_000, 2_000_000]
 REAL_READS = 1_000_000
 REAL_LEN = 100
 MIN_OVERLAP = 40
+
+# phase 7: the smallest fuzz seeds of 1-40, one of them a mode under the
+# sharded engine, and the scale tool's size
+FUZZ_SEEDS = (7, 9, 20)
+FUZZ_SHARDED_SEED = {"se": 20, "pe": 7, "mix": 9}
+SCALE_READS = 200_000
 
 
 def log(msg=""):
@@ -751,6 +768,68 @@ def measurement_phase(torch, window_hash, tmp, card):
     return launches
 
 
+def fuzz_phase(torch, window_hash, card):
+    """Phase 7; returns the fuzz runs' launches by kernel."""
+    from metagenomics_tpu_torch.measure import pipefuzz, scale
+    log("== phase 7: fuzz (seeds %s in se, pe and mix) and scale (%d reads)"
+        % (list(FUZZ_SEEDS), SCALE_READS))
+    t_phase = time.time()
+    dev = torch.device("cuda", 0)
+    with_binary = pipefuzz.binary_runs()
+    # (2, 2) on cuda:0 on one card, one shard a card on several
+    mesh = pipefuzz.make_fuzz_mesh(dev)
+    label = "sharded (%d, %d)" % (mesh.shape["dp"], mesh.shape["ix"])
+    want = 0
+    reset_counts(window_hash)
+    for mode in pipefuzz.MODES:
+        t0 = time.time()
+        runs = [pipefuzz.fuzz(FUZZ_SEEDS, mode, MIN_OVERLAP,
+                              ("device", "hybrid"), dev, with_binary,
+                              log=lambda m: log("    " + m)),
+                pipefuzz.fuzz([FUZZ_SHARDED_SEED[mode]], mode, MIN_OVERLAP,
+                              ("sharded",), dev, False,
+                              log=lambda m: log("    %s %s" % (label, m)))]
+        want += 2 * len(FUZZ_SEEDS) + shards(mesh)
+        equal = {e: "%d/%d" % (r["equal_native"], len(out["seeds"]))
+                 for out in runs for e, r in out["engines"].items()}
+        nat = runs[0]["native"]
+        log("  %s [%s]: equal to native %s; native equal to the binary %s; "
+            "%.2f s" % (mode, card, equal, "%d/%d" % (
+                nat["equal_binary"], len(FUZZ_SEEDS)) if with_binary
+                else "not run", time.time() - t0))
+        for out in runs:
+            if out["failures"]:
+                raise SystemExit("fuzz %s: engines differ from native: %s"
+                                 % (mode, out["failures"]))
+    launches = read_counts(window_hash)
+    log("  fuzz launches %s (want %d each: one a device or hybrid run, one "
+        "a shard a sharded run)" % (launches, want))
+    if launches != dict.fromkeys(KERNELS, want):
+        raise SystemExit("the fuzz runs launched %s, not each kernel %d "
+                         "times" % (launches, want))
+
+    t0 = time.time()
+    res = scale.main(["--n-reads", str(SCALE_READS), "--skip-reference",
+                      "--engines", "native,auto,device"])
+    for name, rec in res["engines"].items():
+        log("  scale %-6s [%s]: ran %s, %.3f s, peak RSS %d bytes, peak "
+            "device memory %s bytes, artifacts %s"
+            % (name, res["card"], rec["engine"], rec["wall_s"],
+               rec["peak_rss_bytes"], rec["max_memory_allocated"],
+               "native's" if name == "native" else
+               "equal" if not rec["artifacts_differing"] else
+               "DIFFER %s" % rec["artifacts_differing"]))
+    eng = res["engines"]
+    if eng["auto"]["engine"] != "hybrid" or \
+            min(r["peak_rss_bytes"] for r in eng.values()) <= 0 or \
+            min(eng[e]["max_memory_allocated"] for e in ("auto", "device")) \
+            <= 0:
+        raise SystemExit("the scale tool's runs: %s" % eng)
+    log("  scale tool %.3f s; phase 7 took %.3f s"
+        % (time.time() - t0, time.time() - t_phase))
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -769,6 +848,7 @@ def main():
         records, by_path = real_size_phase(torch, window_hash, tmp, card)
         by_path["sharded"] = sharded_phase(torch, window_hash, tmp, card)
         by_path["bench"] = measurement_phase(torch, window_hash, tmp, card)
+        by_path["fuzz"] = fuzz_phase(torch, window_hash, card)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "metagenomics_tpu"
