@@ -12,8 +12,11 @@ Phases (any failure exits non-zero; nothing is caught):
      sources;
   2. kernel check: each CUDA kernel is bit-equal to its plain PyTorch
      version (window_hashes_torch, window_hashes_at_torch) on the card at
-     the reference's test shapes, a long-read shape and both l extremes
-     (phase 4 repeats the checks on its full code matrix);
+     the reference's test shapes, a long-read shape and both l extremes,
+     window_hash_at in its standalone and its flagged form (phase 4
+     repeats the checks on its full code matrix); starts -1 and
+     lmax - l + 1 make the standalone form raise, and in the flagged form
+     set the flag and give 0 there, the plain version's value elsewhere;
   3. golden configs: the port's CLI on cuda with the device, hybrid and
      host engines writes all 12 artifacts byte-equal to golden/out/<cfg>/
      (and the normalized log equal to the reference log) for the nine
@@ -27,9 +30,11 @@ Phases (any failure exits non-zero; nothing is caught):
      engine's.  Checks both kernels on that data set (window_hash at
      l = 15, 39 and 63), then prints each run's phase times and peak
      device memory, and each kernel's and plain version's time at the
-     main path's shapes (window_hash also at l = 15 and 63) beside its
-     bound and its share of the bound, with the card's name and power
-     limit;
+     main path's shapes (window_hash also at l = 15 and 63; window_hash_at
+     in the flagged form _setup_kernel uses, its standalone form beside
+     it, after one flagged call under torch.cuda.set_sync_debug_mode
+     ("error")) beside its bound and its share of the bound, with the
+     card's name and power limit;
   5. sharded: the sharded engine (parallel/) on cuda:0, its shards held in
      one process (in-process meshes of cuda:0 repeated), and over a
      one-rank NCCL process group: the dry run over every (dp, ix) split of
@@ -220,11 +225,63 @@ def reverse_starts(torch, lengths, lmax, l):
 
 
 def check_at(torch, window_hash, codes, l, starts, label):
-    """window_hash_at vs window_hashes_at_torch on one CUDA tensor."""
-    return check_equal(
+    """window_hash_at vs window_hashes_at_torch on one CUDA tensor, in the
+    standalone form (the wrapper reads its own range flag back) and in the
+    flagged form the pipelines use (the caller's flag must stay 0)."""
+    err = check_equal(
         torch, lambda: window_hash.window_hashes_at_cuda(codes, l, starts),
         lambda: window_hash.window_hashes_at_torch(codes, l, starts),
         "window_hash_at %s l=%d" % (label, l))
+    bad = torch.zeros(1, dtype=torch.int32, device=codes.device)
+    err = max(err, check_equal(
+        torch,
+        lambda: window_hash.window_hashes_at_cuda(codes, l, starts, bad),
+        lambda: window_hash.window_hashes_at_torch(codes, l, starts),
+        "window_hash_at flagged %s l=%d" % (label, l)))
+    if bad.item():
+        raise SystemExit("window_hash_at flagged in-range starts at %s"
+                         % label)
+    return err
+
+
+def bad_start_check(torch, window_hash, rng):
+    """Starts -1 and lmax - l + 1 on the card: the standalone wrapper
+    raises; the flagged form sets the flag, gives 0 at those outputs and
+    the plain version's value elsewhere (the plain version's flagged form
+    agrees), and the card reports no fault."""
+    n, lmax, l = 300, 100, 39
+    codes = torch.from_numpy(
+        rng.integers(0, 5, (n, lmax)).astype("uint8")).cuda()
+    starts = torch.from_numpy(rng.integers(0, lmax - l + 1, (n, 2))).cuda()
+    starts[5, 0] = -1
+    starts[n - 1, 1] = lmax - l + 1
+    raised = None
+    try:
+        window_hash.window_hashes_at_cuda(codes, l, starts)
+    except ValueError as e:
+        raised = str(e)
+    if not raised or "out of range" not in raised:
+        raise SystemExit("window_hash_at took bad starts without raising "
+                         "(%r)" % raised)
+    bad = torch.zeros(1, dtype=torch.int32, device=codes.device)
+    got = window_hash.window_hashes_at_cuda(codes, l, starts, bad)
+    torch.cuda.synchronize()
+    plain_bad = torch.zeros_like(bad)
+    want = window_hash.window_hashes_at_torch(codes, l, starts, plain_bad)
+    good = (starts >= 0) & (starts <= lmax - l)
+    gathered = torch.gather(window_hash.window_hashes_torch(codes, l), 1,
+                            starts.clamp(0, lmax - l))
+    ok = (bad.item() == 1 and plain_bad.item() == 1
+          and torch.equal(got, want) and not got[~good].any()
+          and torch.equal(got[good], gathered[good]))
+    torch.cuda.synchronize()
+    log("  %-52s %s" % ("window_hash_at starts -1 and lmax - l + 1",
+                        "standalone raised (%s); flagged: flag set, 0 there, "
+                        "plain's values elsewhere, no fault" % raised
+                        if ok else "WRONG"))
+    if not ok:
+        raise SystemExit("window_hash_at's flagged form mishandled bad "
+                         "starts: flag %d, got %s" % (bad.item(), got[~good]))
 
 
 def kernel_check(torch, window_hash, rng):
@@ -246,7 +303,25 @@ def kernel_check(torch, window_hash, rng):
         err["window_hash_at"] = max(err["window_hash_at"], check_at(
             torch, window_hash, codes[1:], l, starts,
             "rows [1:] of %s" % label))
+    bad_start_check(torch, window_hash, rng)
+    stream_check(torch, window_hash)
     return err
+
+
+def stream_check(torch, window_hash):
+    """The stream handle the wrappers launch on (a private torch call) is
+    the one torch.cuda.current_stream gives, on the default stream and
+    inside another."""
+    t = torch.zeros(1, device="cuda")
+    for s in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(s):
+            got = window_hash._device_and_stream(t)
+            want = (t.device.index, torch.cuda.current_stream().cuda_stream)
+        if got != want:
+            raise SystemExit("the wrappers' stream handle %s is not the "
+                             "current stream's %s" % (got, want))
+    log("  %-52s %s" % ("launch stream handle", "the current stream's, on "
+                        "the default stream and another"))
 
 
 def hash_bound(n, lmax, l):
@@ -456,15 +531,22 @@ def shards(mesh):
 
 
 def timed_record(torch, fns, reps, bound_ms, bound_by, nbytes, label, card):
-    """Time the kernel's wrapper vs the plain version in turns; print both
-    beside the bound and the kernel's share of it."""
+    """Time the kernel's wrapper vs the plain version (and, where fns has
+    it, the wrapper's standalone form) in turns; print each beside the
+    bound and the kernel's share of it."""
     ms = time_turns(torch, fns, reps)
     log("  %s [%s]: plain %.6f ms, kernel %.6f ms, bound %.6f ms (%s: %d "
         "bytes), kernel at %.1f%% of the bound"
         % (label, card, ms["plain"], ms["kernel"], bound_ms, bound_by,
            nbytes, 100 * bound_ms / ms["kernel"]))
-    return {"ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    rec = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if "standalone" in ms:
+        log("    standalone form (reads its flag back) [%s]: %.6f ms, %.1f%% "
+            "of the bound" % (card, ms["standalone"],
+                              100 * bound_ms / ms["standalone"]))
+        rec["standalone_ms"] = ms["standalone"]
+    return rec
 
 
 def real_size_phase(torch, window_hash, tmp, card):
@@ -520,8 +602,9 @@ def real_size_phase(torch, window_hash, tmp, card):
     # strand (_setup_kernel), at starts (lmax - len, lmax - l)
     flipped = (3 - codes.flip(1)).contiguous()
     starts = reverse_starts(torch, ds.lengths, lmax, l)
+    rev = flipped[1:]
     err["window_hash_at"] = check_at(
-        torch, window_hash, flipped[1:], l, starts,
+        torch, window_hash, rev, l, starts,
         "flipped rows [1:] [%d, %d], starts [%d, 2]"
         % (rows - 1, lmax, rows - 1))
 
@@ -534,17 +617,36 @@ def real_size_phase(torch, window_hash, tmp, card):
                                                                      hl)},
             20, bound_ms, bound_by, nbytes,
             "window_hash at [%d, %d], l=%d" % (rows, lmax, hl), card)
+
+    # window_hash_at as _setup_kernel calls it: the caller's zeroed flag,
+    # no read-back.  One call first under the sync debug mode "error": any
+    # synchronising operation before or around the launch raises
+    bad = torch.zeros(1, dtype=torch.int32, device=codes.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        window_hash.window_hashes_at_cuda(rev, l, starts, bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("  window_hash_at flagged call under set_sync_debug_mode(\"error\"): "
+        "no synchronising operation")
+    plain_bad = torch.zeros_like(bad)
     bound_ms, bound_by, nbytes = at_bound(torch, starts, l)
-    rev = flipped[1:]
-    # the wrapper as the main path calls it: its range check reads the
-    # starts' min and max back to the host before the launch
     at = timed_record(
         torch,
-        {"plain": lambda: window_hash.window_hashes_at_torch(rev, l, starts),
-         "kernel": lambda: window_hash.window_hashes_at_cuda(rev, l, starts)},
+        {"plain": lambda: window_hash.window_hashes_at_torch(rev, l, starts,
+                                                             plain_bad),
+         "kernel": lambda: window_hash.window_hashes_at_cuda(rev, l, starts,
+                                                             bad),
+         "standalone": lambda: window_hash.window_hashes_at_cuda(rev, l,
+                                                                 starts)},
         20, bound_ms, bound_by, nbytes,
-        "window_hash_at at [%d, %d] x [%d, 2], l=%d"
+        "window_hash_at (flagged) at [%d, %d] x [%d, 2], l=%d"
         % (rows - 1, lmax, rows - 1, l), card)
+    torch.cuda.synchronize()
+    if bad.item() or plain_bad.item():
+        raise SystemExit("window_hash_at flagged the main path's starts")
     return [
         {"name": "window_hash", **sweep[l], "max_abs_err": err["window_hash"],
          "launches": launches["window_hash"],

@@ -45,10 +45,35 @@
 // design; 36, 56 and 110 KB of shared memory a block and 128 or 512
 // threads moved it by less than 5% or made it slower.
 //
-// window_hash_at is gather-shaped: per output l bytes of one row, so it
-// stages tiles the same way and runs Horner's rule over the staged bytes.
+// window_hash_at serves the same TPU kernel's reverse-strand launch: the
+// pipeline needs only two windows a read of the reverse strand (starts
+// lmax - len and lmax - l), so it hashes k given windows a row.  What
+// bounds it: bytes, but at lmax = 100 the two windows (0..38 and 61..99)
+// touch nearly every 32-byte sector of a row, so device memory moves about
+// a whole row a read while the bound counts the 78 covered bytes: ~80% of
+// the bound is its ceiling there.  This design: one thread an output, in
+// output order e = row * k + i, so a row's k windows sit in neighbouring
+// lanes and share its sectors in L1; each thread prefetches its row into
+// L1, loads its start, then its window straight from device memory as
+// aligned 16-byte chunks, four in flight at a time, takes the bytes out by
+// shifts and runs Horner's rule for both bases in registers (bytes before
+// the window hash as 0, which leaves the sums at 0).  No shared memory
+// and no block barrier; a flat grid, one output a thread.  Tried on an
+// H100 and slower: 4-byte loads aligned by funnel shifts, one chunk in
+// flight, no prefetch, and a persistent grid that prefetches each
+// thread's next output.  A start outside [0, lmax - l] is not read: the
+// thread writes 0 and sets the caller's flag, which the caller reads back
+// with a copy it makes anyway, so no launch waits for a check.
+//
+// Launch setup (the SM count, the shared-memory attribute, the occupancy)
+// is queried once per kernel, device and shared-memory size, not per
+// launch.
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,8 +84,8 @@ constexpr uint32_t kM1 = 0x85EBCA6Bu;
 constexpr uint32_t kM2 = 0xC2B2AE35u;
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 128;              // rows per tile
+constexpr int64_t kMaxGrid = 1 << 20;     // window_hash_at's blocks
 constexpr int kHashSmem = 72 * 1024;       // per block: three blocks an SM
-constexpr int kAtSmem = 32 * 1024;
 
 __device__ __forceinline__ uint32_t mix(uint32_t w1, uint32_t w2) {
   return (w1 * kM1) ^ (w2 * kM2);
@@ -215,30 +240,103 @@ window_hash_kernel(const uint8_t* __restrict__ codes,
   });
 }
 
+// Horner's rule for both bases over the nb low bytes of v4 (all four for
+// nb >= 4), whose bytes each hold a code value c + 1 (at most 4, so bytes
+// never carry into each other).
+__device__ __forceinline__ void horner(uint32_t v4, int nb, uint32_t& w1,
+                                       uint32_t& w2) {
+  auto step = [&](int b) {
+    const uint32_t v = (v4 >> (8 * b)) & 0xFFu;
+    w1 = w1 * kB1 + v;
+    w2 = w2 * kB2 + v;
+  };
+  if (nb >= 4) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      step(b);
+    }
+  } else {
+    for (int b = 0; b < nb; ++b) {
+      step(b);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 window_hash_at_kernel(const uint8_t* __restrict__ codes,
+                      const uint8_t* __restrict__ codes_end,
                       const int64_t* __restrict__ starts,
-                      int64_t* __restrict__ out, int64_t n, int lmax,
-                      int hash_len, int k, int rows_per_tile,
-                      int buf_bytes) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  for_each_tile(codes, n, lmax, rows_per_tile, smem, smem + buf_bytes,
-                [&](const uint8_t* tile, int64_t row0, int rows) {
-    const int total = rows * k;
-    const int64_t* st = starts + row0 * k;
-    long long* dst = reinterpret_cast<long long*>(out + row0 * k);
-    for (int e = threadIdx.x; e < total; e += blockDim.x) {
-      const uint8_t* c = tile + (e / k) * lmax + static_cast<int>(st[e]);
-      uint32_t w1 = 0;
-      uint32_t w2 = 0;
-      for (int i = 0; i < hash_len; ++i) {
-        const uint32_t v = (c[i] & 3u) + 1u;
-        w1 = w1 * kB1 + v;
-        w2 = w2 * kB2 + v;
-      }
-      __stcs(dst + e, static_cast<long long>(mix(w1, w2)));
+                      int64_t* __restrict__ out, int32_t* __restrict__ bad,
+                      int64_t total, int lmax, int hash_len, int k) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  long long* dst = reinterpret_cast<long long*>(out);
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       e < total; e += stride) {
+    const int64_t row = k == 2 ? e >> 1 : e / k;
+    const uint8_t* rowp = codes + row * lmax;
+    // the row's first and last lines (all of a row of up to 128 bytes)
+    // start on their way to L1 while the start is loaded
+    asm volatile("prefetch.global.L1 [%0];" :: "l"(rowp));
+    asm volatile("prefetch.global.L1 [%0];" :: "l"(rowp + lmax - 1));
+    const int64_t s = __ldcs(reinterpret_cast<const long long*>(starts) + e);
+    if (s < 0 || s > lmax - hash_len) {
+      *bad = 1;
+      __stcs(dst + e, 0LL);
+      continue;
     }
-  });
+    const uint8_t* p = rowp + s;
+    uint32_t w1 = 0;
+    uint32_t w2 = 0;
+    // the window as 16-byte chunks from the aligned address at or below p;
+    // `head` bytes of the first chunk precede the window
+    const int head = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+    const uint4* cp = reinterpret_cast<const uint4*>(p - head);
+    const int nbytes = head + hash_len;
+    const int nchunks = (nbytes + 15) >> 4;
+    if (reinterpret_cast<const uint8_t*>(cp) < codes ||
+        reinterpret_cast<const uint8_t*>(cp + nchunks) > codes_end) {
+      // a chunk would leave the tensor (its first or last row): bytes
+      for (int i = 0; i < hash_len; ++i) {
+        horner((p[i] & 3u) + 1u, 1, w1, w2);
+      }
+    } else {
+      // four chunks in flight, then hashed
+      for (int c0 = 0; c0 < nchunks; c0 += 4) {
+        uint4 q[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (c0 + u < nchunks) {
+            q[u] = __ldg(cp + c0 + u);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (c0 + u >= nchunks) {
+            break;
+          }
+          const uint32_t words[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int pos = 16 * (c0 + u) + 4 * j;  // the word's first byte
+            const int lead = head - pos;            // its bytes before p
+            if (pos >= nbytes) {
+              break;
+            }
+            if (lead >= 4) {
+              continue;
+            }
+            uint32_t v4 = (words[j] & 0x03030303u) + 0x01010101u;
+            if (lead > 0) {
+              v4 &= 0xFFFFFFFFu << (8 * lead);
+            }
+            horner(v4, nbytes - pos, w1, w2);
+          }
+        }
+      }
+    }
+    __stcs(dst + e, static_cast<long long>(mix(w1, w2)));
+  }
 }
 
 int gcd(int a, int b) {
@@ -264,31 +362,64 @@ int rows_per_tile(int lmax, int per_row, int fixed, int budget) {
   return rows >= q ? rows - rows % q : 2;
 }
 
-// Launch `kernel` on a persistent grid: as many blocks as fit on the card
-// at `smem` bytes of dynamic shared memory each, at most one per tile.
-template <typename Kernel, typename... Args>
-int launch_persistent(Kernel kernel, int64_t ntiles, size_t smem,
-                      cudaStream_t stream, Args... args) {
+// Launch setup, cached: blocks of a persistent grid per (kernel, device,
+// dynamic shared memory), and the largest shared-memory attribute set per
+// (kernel, device).  Queried on first use only, under one lock.
+std::mutex g_launch_mu;
+std::map<std::tuple<const void*, int, size_t>, int64_t> g_blocks;
+std::map<std::tuple<const void*, int>, size_t> g_smem_attr;
+
+// As many blocks as fit on the current device at `smem` bytes of dynamic
+// shared memory each.
+template <typename Kernel>
+cudaError_t persistent_blocks(Kernel kernel, size_t smem, int64_t* blocks) {
   int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(g_launch_mu);
+  const auto key = std::make_tuple(fn, dev, smem);
+  const auto hit = g_blocks.find(key);
+  if (hit != g_blocks.end()) {
+    *blocks = hit->second;
+    return cudaSuccess;
+  }
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  size_t& attr = g_smem_attr[std::make_tuple(fn, dev)];
+  if (err == cudaSuccess && smem > attr) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
+    if (err == cudaSuccess) {
+      attr = smem;
+    }
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kThreads, smem);
   }
   if (err != cudaSuccess) {
+    return err;
+  }
+  *blocks = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  g_blocks[key] = *blocks;
+  return cudaSuccess;
+}
+
+// Launch `kernel` on a persistent grid: as many blocks as fit on the card
+// at `smem` bytes of dynamic shared memory each, at most one per tile.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int64_t ntiles, size_t smem,
+                      cudaStream_t stream, Args... args) {
+  int64_t blocks = 0;
+  const cudaError_t err = persistent_blocks(kernel, smem, &blocks);
+  if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  int64_t blocks = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   blocks = blocks < ntiles ? blocks : ntiles;
   kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
       args...);
@@ -297,16 +428,39 @@ int launch_persistent(Kernel kernel, int64_t ntiles, size_t smem,
 
 size_t round16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
+// Run launch() with `device` current (the caller's device is restored), so
+// the wrapper need not switch devices itself.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) {
+    err = cudaSetDevice(device);
+  }
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int rc = launch();
+  if (prev != device) {
+    err = cudaSetDevice(prev);
+    if (rc == 0 && err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+  }
+  return rc;
+}
+
 }  // namespace
 
 // codes: uint8 [n, lmax] contiguous on the device (any alignment); out:
 // int64 [n, npos] contiguous and 16-byte aligned.  Requires
 // 1 <= hash_len <= lmax < 4096; b1_pow_l and b2_pow_l are B1^l and B2^l
-// mod 2^32.  Launches on `stream` and returns the CUDA error as an int
-// (0 on success).
+// mod 2^32.  Launches on `stream` of device `device` and returns the CUDA
+// error as an int (0 on success).
 extern "C" int window_hash_launch(const void* codes, void* out, int64_t n,
                                   int lmax, int hash_len, uint32_t b1_pow_l,
-                                  uint32_t b2_pow_l, void* stream) {
+                                  uint32_t b2_pow_l, int device,
+                                  void* stream) {
   if (n <= 0) {
     return 0;
   }
@@ -321,28 +475,39 @@ extern "C" int window_hash_launch(const void* codes, void* out, int64_t n,
       ((1ull << 32) + npos - 1) / npos);
   const size_t smem = 2 * static_cast<size_t>(buf_bytes) +
                       static_cast<size_t>(rows) * (lmax + 1) * 8;
-  return launch_persistent(
-      window_hash_kernel, (n + rows - 1) / rows, smem,
-      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(codes),
-      static_cast<int64_t*>(out), n, lmax, hash_len, rows, buf_bytes,
-      b1_pow_l, b2_pow_l, magic);
+  return on_device(device, [&] {
+    return launch_persistent(
+        window_hash_kernel, (n + rows - 1) / rows, smem,
+        static_cast<cudaStream_t>(stream),
+        static_cast<const uint8_t*>(codes), static_cast<int64_t*>(out), n,
+        lmax, hash_len, rows, buf_bytes, b1_pow_l, b2_pow_l, magic);
+  });
 }
 
 // codes: uint8 [n, lmax] contiguous (any alignment); starts: int64 [n, k]
-// contiguous, every value in [0, lmax - hash_len] (the caller checks);
-// out: int64 [n, k] contiguous.  out[r, i] is window_hash's value at row
-// r, start starts[r, i].  Returns the CUDA error as an int.
+// contiguous; out: int64 [n, k] contiguous; bad: one int32 on the device.
+// out[r, i] is window_hash's value at row r, start starts[r, i]; a start
+// outside [0, lmax - hash_len] gives 0 there and sets *bad to 1 (nothing
+// else is written to it: the caller zeroes it and reads it back).
+// Launches on `stream` of device `device`; returns the CUDA error as an
+// int.
 extern "C" int window_hash_at_launch(const void* codes, const void* starts,
-                                     void* out, int64_t n, int lmax,
-                                     int hash_len, int k, void* stream) {
+                                     void* out, void* bad, int64_t n,
+                                     int lmax, int hash_len, int k,
+                                     int device, void* stream) {
   if (n <= 0 || k <= 0) {
     return 0;
   }
-  const int rows = rows_per_tile(lmax, 2 * lmax, 64, kAtSmem);
-  const int buf_bytes = static_cast<int>(round16(rows * lmax + 16));
-  return launch_persistent(
-      window_hash_at_kernel, (n + rows - 1) / rows, 2 * buf_bytes,
-      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(codes),
-      static_cast<const int64_t*>(starts), static_cast<int64_t*>(out), n,
-      lmax, hash_len, k, rows, buf_bytes);
+  return on_device(device, [&] {
+    const int64_t total = n * k;
+    int64_t blocks = (total + kThreads - 1) / kThreads;
+    blocks = blocks < kMaxGrid ? blocks : kMaxGrid;  // the loop strides on
+    const uint8_t* c = static_cast<const uint8_t*>(codes);
+    window_hash_at_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        c, c + n * lmax, static_cast<const int64_t*>(starts),
+        static_cast<int64_t*>(out), static_cast<int32_t*>(bad), total, lmax,
+        hash_len, k);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

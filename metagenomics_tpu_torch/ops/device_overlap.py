@@ -221,7 +221,9 @@ def _setup_kernel(pf, lengths, hash_len, w, wp, lmax):
     rows (fwd then rev, spill-padded to wp), forward window hashes, and the
     stable-sorted 4-key index with (rid<<2|orient) packed entry words
     (HashTable.cpp:88-104 key set, bucket (rid, orient) order).  Returns
-    (packed2, hf, sk, sid)."""
+    (packed2, hf, sk, sid, bad): bad is the reverse-strand hash's range
+    flag, one int32 on the device, nonzero where a start was out of range
+    (read back, and raised on, by DeviceOverlapPipeline._probe)."""
     dev = pf.device
     codes_fwd = _unpack_codes(pf, lmax).contiguous()
     # reverse strand in FLIPPED-PADDED layout: 3 - fwd[:, ::-1] IS the
@@ -242,17 +244,19 @@ def _setup_kernel(pf, lengths, hash_len, w, wp, lmax):
     # flipped layout: the RC prefix window sits at column lmax - len, the
     # RC suffix window at the (static) last column lmax - hash_len; only
     # those two reverse-strand windows are hashed (QC keeps reads longer
-    # than hash_len + 1, so both starts lie in [0, lmax - hash_len])
+    # than hash_len + 1, so both starts lie in [0, lmax - hash_len]; the
+    # kernel checks that into `bad` without a read-back here)
     rstarts = torch.stack([lmax - lengths[1:].to(_I64),
                            torch.full((n,), lmax - hash_len, dtype=_I64,
                                       device=dev)], dim=1)
-    k23 = window_hashes_at(flipped[1:], hash_len, rstarts)
+    bad = torch.zeros(1, dtype=_I32, device=dev)
+    k23 = window_hashes_at(flipped[1:], hash_len, rstarts, bad)
     keys = torch.cat([k0[:, None], k1[:, None], k23], dim=1).reshape(-1)
     rid = torch.arange(1, n + 1, dtype=_I64, device=dev).repeat_interleave(4)
     orient = torch.arange(4, dtype=_I64, device=dev).repeat(n)
     sk, perm = torch.sort(keys, stable=True)
     sid = ((rid << 2) | orient)[perm]
-    return packed2, hf, sk, sid
+    return packed2, hf, sk, sid, bad
 
 
 def _probe_join(hf, lengths, sk, hash_len, sum_block):
@@ -536,15 +540,18 @@ class DeviceOverlapPipeline:
         self._pad_cache = None
 
     def _build_index(self, pf):
-        """_setup_kernel on the uploaded forward words pf."""
-        self.packed2, self.hf, self.sk, self.sid = _setup_kernel(
-            pf, self.lengths, self.hash_len, self.w, self.wp, self.lmax)
+        """_setup_kernel on the uploaded forward words pf; its range flag
+        waits on the device for _probe's read-back."""
+        (self.packed2, self.hf, self.sk, self.sid,
+         self.bad_start) = _setup_kernel(pf, self.lengths, self.hash_len,
+                                         self.w, self.wp, self.lmax)
 
     def _probe(self):
         """The probe join of reads >= row0 and its hit and candidate
         totals (read back); the blocked partial sums keep every
         device-side accumulator < 2^31 even for pathologically repetitive
-        inputs."""
+        inputs.  The hit total comes back in one copy with the setup's
+        range flag, and a set flag raises here."""
         m = int(self.sk.shape[0])
         sum_block = 1 << max(3, min(12, (1 << 31).bit_length()
                                     - max(m, 1).bit_length() - 2))
@@ -553,7 +560,12 @@ class DeviceOverlapPipeline:
                      else self.lengths)
         self.rk, self.rleft, self.rcnt, h_total, parts = _probe_join(
             hf_probe, len_probe, self.sk, self.hash_len, sum_block)
-        self.h_total = int(h_total)
+        self.h_total, bad = torch.cat([h_total.reshape(1),
+                                       self.bad_start]).tolist()
+        if bad:
+            raise ValueError("window start out of range [0, %d] in "
+                             "_setup_kernel's reverse-strand keys"
+                             % (self.lmax - self.hash_len))
         self.grand = int(parts.cpu().numpy().sum(dtype=np.int64))
         self._pad_cache = None
 

@@ -9,6 +9,11 @@ unsigned sort order exact.
 
 window_hashes() hashes every window of every row; window_hashes_at()
 hashes k given windows of each row (the pipeline's reverse-strand keys).
+The starts' range is checked where they are read: given a flag tensor, a
+start outside [0, lmax - l] sets it, and the caller reads it back with a
+copy it makes anyway (the pipelines' probe), so no launch waits for the
+host.
+
 Each dispatches on the tensor's device: a CPU tensor goes to the plain
 version (window_hashes_torch, window_hashes_at_torch), a CUDA tensor to the
 hand-written kernels in csrc/window_hash.cu, which is compiled with nvcc
@@ -74,9 +79,9 @@ def window_hashes_torch(codes, hash_len):
     return mul32(w1 & MASK32, _M1) ^ mul32(w2 & MASK32, _M2)
 
 
-def _check_at(codes, hash_len, starts):
-    """Shapes and range of window_hashes_at's arguments; raises on a start
-    outside [0, lmax - hash_len] (one device-to-host read on a card)."""
+def _check_at(codes, hash_len, starts, bad):
+    """Shapes, types and devices of window_hashes_at's arguments (no
+    values: nothing is read back from a card)."""
     if codes.dim() != 2 or starts.dim() != 2 or \
             starts.shape[0] != codes.shape[0]:
         raise ValueError("need codes [N, lmax] and starts [N, k], got %s and "
@@ -88,26 +93,42 @@ def _check_at(codes, hash_len, starts):
     if not 1 <= hash_len <= lmax:
         raise ValueError("need 1 <= hash_len (%d) <= lmax (%d)"
                          % (hash_len, lmax))
-    if starts.numel():
-        lo, hi = torch.stack(torch.aminmax(starts)).tolist()
-        if lo < 0 or hi > lmax - hash_len:
-            raise ValueError("window start out of range [0, %d]: %d..%d"
-                             % (lmax - hash_len, lo, hi))
+    if bad is not None and (bad.shape != (1,) or bad.dtype != torch.int32
+                            or bad.device != codes.device):
+        raise ValueError("bad must be one int32 on %s, got %s %s on %s"
+                         % (codes.device, bad.dtype, tuple(bad.shape),
+                            bad.device))
 
 
-def window_hashes_at_torch(codes, hash_len, starts):
+def _out_of_range(lmax, hash_len):
+    return ValueError("window start out of range [0, %d]"
+                      % (lmax - hash_len))
+
+
+def window_hashes_at_torch(codes, hash_len, starts, bad=None):
     """Plain PyTorch version of window_hashes_at: out[r, i] equals
     window_hashes_torch(codes, hash_len)[r, starts[r, i]], summed exactly
-    in int64 one window base at a time."""
-    _check_at(codes, hash_len, starts)
+    in int64 one window base at a time.  A start outside [0, lmax - l]
+    raises here, or, given a one-element int32 flag `bad`, sets it to 1
+    and gives 0 at that output, as the kernel does."""
+    _check_at(codes, hash_len, starts, bad)
     l = hash_len
+    hi = codes.shape[1] - l
+    oob = (starts < 0) | (starts > hi)
+    if bad is None:
+        if bool(oob.any()):
+            raise _out_of_range(codes.shape[1], l)
+    else:
+        bad.masked_fill_(oob.any(), 1)
+    starts = starts.clamp(0, hi)
     w1 = torch.zeros(starts.shape, dtype=torch.int64, device=codes.device)
     w2 = torch.zeros_like(w1)
     for k in range(l):
         t = (torch.gather(codes, 1, starts + k).to(torch.int64) & 3) + 1
         w1 += t * pow(_B1, l - 1 - k, 1 << 32)
         w2 += t * pow(_B2, l - 1 - k, 1 << 32)
-    return mul32(w1 & MASK32, _M1) ^ mul32(w2 & MASK32, _M2)
+    out = mul32(w1 & MASK32, _M1) ^ mul32(w2 & MASK32, _M2)
+    return out.masked_fill_(oob, 0)
 
 
 def _find_nvcc():
@@ -154,15 +175,30 @@ def _load():
             lib.window_hash_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p]
             lib.window_hash_launch.restype = ctypes.c_int
             lib.window_hash_at_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.window_hash_at_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def _device_and_stream(t):
+    """(device index, raw handle of its current stream) for a launch: the
+    kernel library makes the device current itself, so no device context
+    is entered here.  torch._C._cuda_getCurrentRawStream gives the handle
+    without building the Stream object torch.cuda.current_stream returns
+    (host time on every launch); it is private (checked on torch 2.11), so
+    where a torch lacks it the public call stands in.  chip_smoke.py
+    checks that the two agree."""
+    index = t.device.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return index, torch.cuda.current_stream(index).cuda_stream
+    return index, raw(index)
 
 
 def _check_codes(codes, name):
@@ -193,11 +229,10 @@ def window_hashes_cuda(codes, hash_len):
     if n == 0:
         return out
     lib = _load()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.window_hash_launch(
-            codes.data_ptr(), out.data_ptr(), n, lmax, hash_len,
-            pow(_B1, hash_len, 1 << 32), pow(_B2, hash_len, 1 << 32), stream)
+    err = lib.window_hash_launch(
+        codes.data_ptr(), out.data_ptr(), n, lmax, hash_len,
+        pow(_B1, hash_len, 1 << 32), pow(_B2, hash_len, 1 << 32),
+        *_device_and_stream(codes))
     if err != 0:
         raise RuntimeError("window_hash kernel launch failed: CUDA error %d"
                            % err)
@@ -205,28 +240,34 @@ def window_hashes_cuda(codes, hash_len):
     return out
 
 
-def window_hashes_at_cuda(codes, hash_len, starts):
+def window_hashes_at_cuda(codes, hash_len, starts, bad=None):
     """Launch window_hash_at on a uint8 [N, lmax] CUDA tensor and int64
     starts [N, k]; returns the int64 [N, k] hashes at those starts (equal
-    to window_hashes_at_torch bit for bit)."""
+    to window_hashes_at_torch bit for bit).  The kernel checks the starts'
+    range: given a one-element int32 flag `bad` (zeroed by the caller), a
+    start outside [0, lmax - l] sets it and gives 0 at that output, and
+    nothing is read back; without one, the wrapper reads its own flag
+    after the launch and raises."""
     global at_launches
     _check_codes(codes, "window_hashes_at_cuda")
-    _check_at(codes, hash_len, starts)
+    _check_at(codes, hash_len, starts, bad)
     starts = starts.contiguous()
     n, lmax = codes.shape
     out = torch.empty(starts.shape, dtype=torch.int64, device=codes.device)
     if out.numel() == 0:
         return out
+    flag = (torch.zeros(1, dtype=torch.int32, device=codes.device)
+            if bad is None else bad)
     lib = _load()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.window_hash_at_launch(
-            codes.data_ptr(), starts.data_ptr(), out.data_ptr(), n, lmax,
-            hash_len, starts.shape[1], stream)
+    err = lib.window_hash_at_launch(
+        codes.data_ptr(), starts.data_ptr(), out.data_ptr(), flag.data_ptr(),
+        n, lmax, hash_len, starts.shape[1], *_device_and_stream(codes))
     if err != 0:
         raise RuntimeError("window_hash_at kernel launch failed: CUDA error "
                            "%d" % err)
     at_launches += 1
+    if bad is None and flag.item():
+        raise _out_of_range(lmax, hash_len)
     return out
 
 
@@ -241,13 +282,15 @@ def window_hashes(codes, hash_len):
                      % codes.device)
 
 
-def window_hashes_at(codes, hash_len, starts):
+def window_hashes_at(codes, hash_len, starts, bad=None):
     """[N, k] window hashes of uint8 codes [N, lmax] at int64 starts
     [N, k] on codes' device: the plain version for a CPU tensor, the CUDA
-    kernel for a CUDA one.  Raises on a start outside [0, lmax - l]."""
+    kernel for a CUDA one.  A start outside [0, lmax - l] raises, or sets
+    the one-element int32 flag `bad` when one is given (see
+    window_hashes_at_cuda)."""
     if codes.device.type == "cpu":
-        return window_hashes_at_torch(codes, hash_len, starts)
+        return window_hashes_at_torch(codes, hash_len, starts, bad)
     if codes.device.type == "cuda":
-        return window_hashes_at_cuda(codes, hash_len, starts)
+        return window_hashes_at_cuda(codes, hash_len, starts, bad)
     raise ValueError("no window-hash implementation for device %s"
                      % codes.device)

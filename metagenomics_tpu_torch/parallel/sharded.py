@@ -180,11 +180,20 @@ class ShardedOverlapPipeline:
             self.lengths_sl[key] = torch.from_numpy(_rows_slice(
                 lengths_host, lo, nloc2, 0)).to(dev)
 
-        # stage 1: per-slice setup (each read processed exactly once)
+        # stage 1: per-slice setup (each read processed exactly once).  The
+        # query histograms come back in one copy with every shard's range
+        # flag of the reverse-strand hash (window_hash_at), so every rank
+        # raises on a bad start at this read-back
         (self.pslice_f, self.pslice_r, self.hf_sl, self.keys_l, self.id_l,
-         qcnt, icnt) = self._with_phase("setup", self._setup)
+         qcnt, icnt, bad) = self._with_phase("setup", self._setup)
+        qcnt_bad = self.global_({k: torch.cat([qcnt[k], bad[k][None]], dim=1)
+                                 for k in mesh.local})
+        if qcnt_bad[:, -1].any():
+            raise ValueError("window start out of range [0, %d] in the "
+                             "reverse-strand keys of the setup stage"
+                             % (lmax - self.hash_len))
         self.cap_q = int(dov._tier(
-            max(int(self.global_(qcnt).max()), 1), lo=1 << 8))
+            max(int(qcnt_bad[:, :-1].max()), 1), lo=1 << 8))
         self.cap_blk = int(dov._tier(
             max(int(self.global_(icnt).max()), 1), lo=1 << 8))
 
@@ -269,9 +278,10 @@ class ShardedOverlapPipeline:
         k1 = torch.gather(hf, 1, suf[:, None])[:, 0]
         # the reverse keys hr[:, 0] and hr[:, suf], hashed at those two
         # starts only (suf is clipped to [0, npos - 1], so padding rows
-        # pass the wrapper's range check too)
+        # pass the kernel's range check too; its flag is read in __init__)
+        bad = torch.zeros(1, dtype=_I32, device=dev)
         k23 = window_hashes_at(codes_rev, hash_len, torch.stack(
-            [torch.zeros_like(suf), suf], dim=1))
+            [torch.zeros_like(suf), suf], dim=1), bad)
         keys = torch.cat([k0[:, None], k1[:, None], k23], dim=1)
         keys = torch.where(real[:, None], keys, PAD_KEY).reshape(-1)
         rid = rows_g.repeat_interleave(4)
@@ -295,7 +305,7 @@ class ShardedOverlapPipeline:
         else:
             icnt = torch.full((1,), sk.shape[0], dtype=_I32, device=dev)
             qcnt = valid.sum(dtype=_I32).reshape(1)
-        return pf, pr, hf, sk, sid, qcnt[None], icnt[None]
+        return pf, pr, hf, sk, sid, qcnt[None], icnt[None], bad
 
     # --------------------------------------------------------- stages 2+3
 
@@ -595,10 +605,11 @@ class ShardedOverlapPipeline:
         np.add.at(ccounts, r1[keep], 1)
         return ccounts, pack(r2[keep], meta[keep]), supers, firsthit
 
-    def stream(self, check_cont=True, dedup=False):
+    def stream(self, check_cont=True, download=True, dedup=False):
         """Survivor stream in reference discovery order: (counts [n1] int64,
         r2 int32, meta uint16) -- the DeviceOverlapPipeline.stream
-        contract."""
+        contract.  download=False runs every chunk's emit but reads back
+        only the n_keep counts, and returns None."""
         D = self.dp
         n1, nloc = self.n1, self.nloc
 
@@ -657,6 +668,8 @@ class ShardedOverlapPipeline:
         n_keeps = []
         for *_, nk in outs:
             n_keeps.append([int(r[0]) for r in self._rows(nk, D)])
+        if not download:
+            return None
 
         r2_parts, m_parts = [], []
         fetched = []
