@@ -64,7 +64,13 @@ Phases (any failure exits non-zero; nothing is caught):
      printed); then measure/scale.py at 200,000 reads (native, auto,
      device, each a child process) must print equal artifacts, auto
      resolved to hybrid, a peak RSS and the device runs' peak device
-     memory.
+     memory;
+  8. recorder: a device-engine construction (golden pe_real through the
+     CLI) under torch.profiler; the recorder's CLOCK and overlap.* spans
+     must be annotations of the trace, the overlap.* ones inside
+     buildOverlapGraphFromHashTable, every kernel, copy and set the
+     construction ran must have been launched inside an overlap.*
+     annotation, and every host-to-card copy inside overlap.upload.
 
 Each kernel's launch counter is set to 0 just before each run of the CLI
 and read just after it; a device or hybrid run (one that did not fall
@@ -932,6 +938,69 @@ def fuzz_phase(torch, window_hash, card):
     return launches
 
 
+PIPELINE_SPANS = ("overlap.pipeline", "overlap.upload", "overlap.stream",
+                  "overlap.emit", "overlap.fetch")
+
+
+def recorder_phase(torch, tmp):
+    """Phase 8: the recorder's spans in a profiler trace, around the
+    device work they launched."""
+    from torch.profiler import ProfilerActivity, profile
+    log("== phase 8: the recorder's spans in a profiler trace")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_cli(GOLDEN_CONFIGS["pe_real"], os.path.join(tmp, "recorder"),
+                "device")
+        torch.cuda.synchronize()
+    path = os.path.join(tmp, "recorder_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+
+    def within(e, a):
+        return a["ts"] <= e["ts"] and \
+            e["ts"] + e.get("dur", 0) <= a["ts"] + a["dur"]
+
+    ann = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            ann.setdefault(e["name"], []).append(e)
+    missing = [n for n in ("buildOverlapGraphFromHashTable",)
+               + PIPELINE_SPANS if n not in ann]
+    if missing:
+        raise SystemExit("the trace lacks the spans %s" % missing)
+    build, = ann["buildOverlapGraphFromHashTable"]
+    spans = [a for n in PIPELINE_SPANS for a in ann[n]]
+    if not all(within(a, build) for a in spans):
+        raise SystemExit("an overlap.* span lies outside the construction")
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    work = [(e, launch.get(e.get("args", {}).get("correlation")))
+            for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ours = [(e, l) for e, l in work if l is not None and within(l, build)]
+    stray = sorted({e["name"] for e, l in ours
+                    if not any(within(l, a) for a in spans)})
+    h2d = [(e, l) for e, l in ours if "HtoD" in e["name"]]
+    stray_h2d = [e["name"] for e, l in h2d
+                 if not any(within(l, a) for a in ann["overlap.upload"])]
+    log("  spans in the trace: %s; %d kernels, copies and sets launched in "
+        "the construction (%d unmatched to a launch), %d outside an "
+        "overlap.* span; %d host-to-card copies, %d outside overlap.upload; "
+        "%d device-side annotations" % (
+            {n: len(ann[n]) for n in PIPELINE_SPANS}, len(ours),
+            sum(l is None for _, l in work), len(stray), len(h2d),
+            len(stray_h2d), sum(e.get("cat") == "gpu_user_annotation"
+                                for e in events)))
+    if not ours or stray or not h2d or stray_h2d:
+        raise SystemExit("device work outside its span: %s %s (copies in "
+                         "the trace: %s)" % (stray, stray_h2d, sorted(
+                             {e["name"] for e, _ in work
+                              if e.get("cat") == "gpu_memcpy"})))
+
+
 def main():
     import numpy as np
     import torch
@@ -951,6 +1020,7 @@ def main():
         by_path["sharded"] = sharded_phase(torch, window_hash, tmp, card)
         by_path["bench"] = measurement_phase(torch, window_hash, tmp, card)
         by_path["fuzz"] = fuzz_phase(torch, window_hash, card)
+        recorder_phase(torch, tmp)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "metagenomics_tpu"

@@ -9,13 +9,21 @@ with the same loopLimit=15 caps on each of the three driver loops.
 Port of metagenomics_tpu/assembler.py; only the engine dispatch differs.
 """
 
-import time
-
 from .config import AssemblerConfig
 from .dataset import Dataset
 from .graph import OverlapGraph
 from .index import OverlapIndex
-from .utils import PhaseTimer
+from .utils import timing
+
+# Assembler.timings: its key -> the span of run() that times it
+PHASE_SPANS = {"Dataset": "assembler.dataset",
+               "insertDataset": "insertDataset",
+               "buildOverlapGraphFromHashTable":
+                   "buildOverlapGraphFromHashTable",
+               "printDataset": "assembler.save_reads",
+               "saveGraphToFile": "saveGraphToFile",
+               "calculateFlow": "calculateFlow",
+               "total": "assembler.run"}
 
 def auto_engine(device_type, n_cards, world_size=1):
     """The engine `auto` picks for the pipeline's device type, the number
@@ -42,20 +50,26 @@ class Assembler:
     def __init__(self, config: AssemblerConfig, log=print):
         self.cfg = config
         self.log = log
-        self._timer = PhaseTimer(log=log)
         self.engine = None
+        self._timings = {}
 
     @property
     def timings(self):
-        return self._timer.timings
+        """Seconds of the last run()'s phases (PHASE_SPANS' keys), from
+        the spans the recorder took of it."""
+        return self._timings
 
-    def _timed(self, name, fn, *args):
-        """Silently-timed phase for bench consumers; the reference-format
-        CLOCKSTART/CLOCKSTOP log blocks are emitted by the phase functions
-        themselves (utils/timing.py phase_clock)."""
-        with self._timer.phase(name):
-            result = fn(*args)
-        return result
+    def _phase_seconds(self, run_span):
+        """PHASE_SPANS' keys -> seconds, from run_span and the spans it
+        holds directly."""
+        key = {v: k for k, v in PHASE_SPANS.items()}
+        out = {}
+        for r in timing.recorder.snapshot(since=run_span.start):
+            if isinstance(r, timing.Span) and r.parent == run_span.id \
+                    and r.name in key:
+                out[key[r.name]] = (r.end - r.start) / 1e9
+        out[key[run_span.name]] = run_span.seconds
+        return out
 
     def _build(self, graph):
         """Run the construction phase with the selected overlap engine.
@@ -78,9 +92,8 @@ class Assembler:
         The engine that built the graph is left in self.engine ("device"
         when hybrid fell back to the device pipeline).
         """
-        from .utils.timing import phase_clock
-        with phase_clock("buildOverlapGraphFromHashTable", log=self.log,
-                         src=__file__):
+        with timing.phase_clock("buildOverlapGraphFromHashTable",
+                                log=self.log, src=__file__):
             self._build_engine(graph)
 
     def _build_engine(self, graph):
@@ -140,10 +153,17 @@ class Assembler:
         self.engine = engine
 
     def run(self):
+        run_span = timing.span("assembler.run")
+        try:
+            with run_span:
+                return self._run()
+        finally:
+            self._timings = self._phase_seconds(run_span)
+
+    def _run(self):
         cfg = self.cfg
         prefix = cfg.output_prefix
-        t_start = time.time()
-        with self._timer.phase("Dataset"):
+        with timing.span("assembler.dataset"):
             ds = Dataset(cfg.paired_end_files, cfg.single_end_files,
                          cfg.min_overlap, log=self.log)
         if ds.number_of_unique_reads == 0:
@@ -167,17 +187,14 @@ class Assembler:
             # string hash table with a sorted-key join, so this emits the
             # reference's table statistics from a simulation (hashstats.py)
             from .hashstats import emit_insert_dataset_log
-            with self._timer.phase("insertDataset"):
-                emit_insert_dataset_log(ds, cfg.min_overlap, self.log)
-            self._timed("buildOverlapGraphFromHashTable", self._build, graph)
-            self._timed("printDataset", ds.save_reads,
-                        prefix + "_sortedReads.fasta")
+            emit_insert_dataset_log(ds, cfg.min_overlap, self.log)
+            self._build(graph)
+            with timing.span("assembler.save_reads"):
+                ds.save_reads(prefix + "_sortedReads.fasta")
             graph.sort_edges()
-            self._timed("saveGraphToFile", graph.save_graph_to_file,
-                        prefix + ".unitig")
+            graph.save_graph_to_file(prefix + ".unitig")
 
-        self._timed("calculateFlow", graph.calculate_flow,
-                    prefix + "_flow.input", prefix + "_flow.output")
+        graph.calculate_flow(prefix + "_flow.input", prefix + "_flow.output")
         self.log("nodes: %d edges: %d"
                  % (graph.number_of_nodes, graph.number_of_edges))
         graph.print_graph(prefix + "graph1.gdl", prefix + "contigs1.fasta")
@@ -225,6 +242,4 @@ class Assembler:
             if not (counter > 0 and iteration < cfg.loop_limit):
                 break
         graph.print_graph(prefix + "graph4.gdl", prefix + "contigs4.fasta")
-
-        self.timings["total"] = time.time() - t_start
         return graph

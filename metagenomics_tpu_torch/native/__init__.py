@@ -29,8 +29,16 @@ def _build_lib():
     """Compile _SRC into _SO.  Processes that start at once (test workers,
     the CLI beside a test) take turns on a lock file beside the library;
     each writes its own temp file, and one that finds the library built
-    while it waited does not build it again."""
+    while it waited does not build it again.  The compile is a span
+    kernel.build of the port's recorder."""
+    import contextlib
     import fcntl
+    try:
+        from ..utils.timing import span
+    except ImportError:
+        # this file loaded on its own, outside the package
+        def span(name, **attrs):
+            return contextlib.nullcontext()
     with open(_SO + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if (os.path.exists(_SO)
@@ -39,11 +47,12 @@ def _build_lib():
         tmp = "%s.%d.tmp" % (_SO, os.getpid())
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
                "-o", tmp, _SRC]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True)
-        except subprocess.CalledProcessError:
-            cmd = ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC]
-            subprocess.run(cmd, check=True, capture_output=True)
+        with span("kernel.build", library=_SO):
+            try:
+                subprocess.run(cmd, check=True, capture_output=True)
+            except subprocess.CalledProcessError:
+                cmd = ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC]
+                subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, _SO)
 
 

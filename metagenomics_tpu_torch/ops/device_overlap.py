@@ -28,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils.timing import count, span, traced
 from .window_hash import MASK32, window_hashes, window_hashes_at
 
 PAD_HASH = 0xFFFFFFFF
@@ -97,6 +98,7 @@ def _upload_words(words_u32, device):
     """uint32 numpy words -> int64 tensor on device (uploads 4 bytes a
     word, widens on the device)."""
     t = torch.from_numpy(np.ascontiguousarray(words_u32).view(np.int32))
+    count("device.h2d_bytes", t.numel() * t.element_size())
     return t.to(device).to(_I64) & MASK32
 
 
@@ -480,8 +482,22 @@ def _fetch_words(outs):
     """Concatenate the first n_keep int64-held 32-bit words of each
     (device buffer, n_keep) pair into one uint32 array (one download per
     buffer)."""
-    parts = [buf[:nk].cpu().numpy().astype(np.uint32) for buf, nk in outs]
-    return np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+    with span("overlap.fetch"):
+        parts = [buf[:nk].cpu().numpy().astype(np.uint32)
+                 for buf, nk in outs]
+    count("device.syncs", len(parts))
+    words = np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+    count("overlap.survivors", len(words))
+    return words
+
+
+def _fetch(t):
+    """One read-back of a per-read device array (counts, supers, first
+    hits) as numpy."""
+    with span("overlap.fetch"):
+        a = t.cpu().numpy()
+    count("device.syncs")
+    return a
 
 
 class DeviceOverlapPipeline:
@@ -495,10 +511,13 @@ class DeviceOverlapPipeline:
 
     MAX_CAP = 1 << 23      # upper bound on a chunk's candidate buffer
 
+    @traced("overlap.pipeline")
     def __init__(self, dataset, min_overlap, row_lo=0, device=None):
-        self._configure(dataset, min_overlap, row_lo, device)
-        self._build_index(_upload_words(pack_codes_host(dataset.codes_fwd),
-                                        self.device))
+        with span("overlap.upload"):
+            self._configure(dataset, min_overlap, row_lo, device)
+            pf = _upload_words(pack_codes_host(dataset.codes_fwd),
+                               self.device)
+        self._build_index(pf)
         self._probe()
 
     def _configure(self, dataset, min_overlap, row_lo, device):
@@ -527,8 +546,9 @@ class DeviceOverlapPipeline:
             raise ValueError(
                 "query id space exceeds 2^30 (%d reads x %d positions); "
                 "use the sharded pipeline" % (n1, self.npos))
-        self.lengths = torch.from_numpy(
-            ds.lengths.astype(np.int32)).to(self.device)
+        lengths = torch.from_numpy(ds.lengths.astype(np.int32))
+        count("device.h2d_bytes", lengths.numel() * lengths.element_size())
+        self.lengths = lengths.to(self.device)
 
         # survivor packing: one 32-bit word per survivor when
         # (r2 bits + 4 flag/orient bits + offset bits) fit, else the
@@ -562,11 +582,14 @@ class DeviceOverlapPipeline:
             hf_probe, len_probe, self.sk, self.hash_len, sum_block)
         self.h_total, bad = torch.cat([h_total.reshape(1),
                                        self.bad_start]).tolist()
+        count("device.syncs")
         if bad:
             raise ValueError("window start out of range [0, %d] in "
                              "_setup_kernel's reverse-strand keys"
                              % (self.lmax - self.hash_len))
         self.grand = int(parts.cpu().numpy().sum(dtype=np.int64))
+        count("device.syncs")
+        count("overlap.candidates", self.grand)
         self._pad_cache = None
 
     def _plan_chunks(self):
@@ -582,6 +605,7 @@ class DeviceOverlapPipeline:
         row_tot, row_hits = _row_stats(self.rk, self.rcnt, h_total, n1, npos)
         row_tot = row_tot.cpu().numpy().astype(np.int64)
         row_hits = row_hits.cpu().numpy().astype(np.int64)
+        count("device.syncs", 2)
         cap = min(_tier(max(grand, 1)), limit)
         cap = max(cap, int(row_tot.max()))
         cum = np.concatenate([[0], np.cumsum(row_tot)])
@@ -622,19 +646,22 @@ class DeviceOverlapPipeline:
         rk_pad, rleft_pad, rcnt_pad = self._padded(nqt)
         outs = []
         kc_total = None
-        for h0, nh in chunks:
-            out, kc, n_keep = _emit2(
-                self.packed2, self.lengths, rk_pad, rleft_pad, rcnt_pad,
-                self.sid, h0, nh, self.row0, self.hash_len, nqt, cap,
-                self.npos, self.w, self.qw_max, check_cont, self.off_bits,
-                self.uniform_len, dedup=dedup)
+        for i, (h0, nh) in enumerate(chunks):
+            with span("overlap.emit", chunk=i, cap=cap):
+                out, kc, n_keep = _emit2(
+                    self.packed2, self.lengths, rk_pad, rleft_pad, rcnt_pad,
+                    self.sid, h0, nh, self.row0, self.hash_len, nqt, cap,
+                    self.npos, self.w, self.qw_max, check_cont,
+                    self.off_bits, self.uniform_len, dedup=dedup)
             outs.append((out, n_keep))
             kc_total = kc if kc_total is None else kc_total + kc
         outs = [(out, int(nk)) for out, nk in outs]
+        count("device.syncs", len(outs))
         if not download:
             return outs, kc_total
-        return outs, kc_total.cpu().numpy().astype(np.int64)
+        return outs, _fetch(kc_total).astype(np.int64)
 
+    @traced("overlap.stream")
     def stream(self, check_cont=True, download=True):
         """Survivor stream in reference discovery order (read asc, j asc,
         bucket order): (counts [n+1] int64, r2 int32, meta uint16).
@@ -649,9 +676,9 @@ class DeviceOverlapPipeline:
         if self.off_bits >= 0:
             r2, meta = self._unpack_words(_fetch_words(outs))
         else:
-            parts = [(out[0][:nk].cpu().numpy(),
-                      out[1][:nk].cpu().numpy().astype(np.uint16))
-                     for out, nk in outs if nk]
+            parts = [(_fetch(out[0][:nk]), _fetch(out[1][:nk]).astype(
+                np.uint16)) for out, nk in outs if nk]
+            count("overlap.survivors", sum(len(p[0]) for p in parts))
             if parts:
                 r2 = np.concatenate([p[0] for p in parts])
                 meta = np.concatenate([p[1] for p in parts])
@@ -668,6 +695,7 @@ class DeviceOverlapPipeline:
                 .astype(np.uint16))
         return r2, meta
 
+    @traced("overlap.stream")
     def stream_canon(self, check_cont=True):
         """Canonical (deduplicated) survivor stream for the native replay:
         one record per physical overlap, from its smaller endpoint;
@@ -690,18 +718,23 @@ class DeviceOverlapPipeline:
                                               # full-stream path handles it
         rk_pad, rleft_pad, rcnt_pad = self._padded(nqt)
         h0, nh = chunks[0]
-        out, kc, n_keep = _emit2(
-            self.packed2, self.lengths, rk_pad, rleft_pad, rcnt_pad,
-            self.sid, h0, nh, self.row0, self.hash_len, nqt, cap, self.npos,
-            self.w, self.qw_max, True, self.off_bits, self.uniform_len)
-        words2, counts2, n_keep2, sup, fh = _cont_canon(
-            out, kc, n_keep, self.lengths, n1, self.off_bits)
-        packed = _fetch_words([(words2, int(n_keep2))])
-        counts = counts2.cpu().numpy().astype(np.int64)
-        supers = sup.cpu().numpy().astype(np.int64)
-        firsthit = fh.cpu().numpy()
+        with span("overlap.emit", chunk=0, cap=cap):
+            out, kc, n_keep = _emit2(
+                self.packed2, self.lengths, rk_pad, rleft_pad, rcnt_pad,
+                self.sid, h0, nh, self.row0, self.hash_len, nqt, cap,
+                self.npos, self.w, self.qw_max, True, self.off_bits,
+                self.uniform_len)
+            words2, counts2, n_keep2, sup, fh = _cont_canon(
+                out, kc, n_keep, self.lengths, n1, self.off_bits)
+        n_keep2 = int(n_keep2)
+        count("device.syncs")
+        packed = _fetch_words([(words2, n_keep2)])
+        counts = _fetch(counts2).astype(np.int64)
+        supers = _fetch(sup).astype(np.int64)
+        firsthit = _fetch(fh)
         return counts, packed, supers, firsthit
 
+    @traced("overlap.stream")
     def stream_canon_raw_mixed(self):
         """Hybrid mixed-mode stream: canonical edge records (smaller
         endpoint, UNFILTERED by containment) plus every containment hit,

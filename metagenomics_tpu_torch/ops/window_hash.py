@@ -31,6 +31,8 @@ import threading
 
 import torch
 
+from ..utils.timing import count, span
+
 _B1 = 0x01000193     # FNV prime
 _B2 = 0x9E3779B1     # golden-ratio odd constant
 _M1 = 0x85EBCA6B
@@ -156,8 +158,9 @@ def build_library():
     nvcc = _find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
+    with span("kernel.build", library=so):
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+                              capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s%s"
                            % (SOURCE, proc.stdout, proc.stderr))
@@ -266,8 +269,10 @@ def window_hashes_at_cuda(codes, hash_len, starts, bad=None):
         raise RuntimeError("window_hash_at kernel launch failed: CUDA error "
                            "%d" % err)
     at_launches += 1
-    if bad is None and flag.item():
-        raise _out_of_range(lmax, hash_len)
+    if bad is None:
+        count("device.syncs")
+        if flag.item():
+            raise _out_of_range(lmax, hash_len)
     return out
 
 
