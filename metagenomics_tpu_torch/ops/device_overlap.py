@@ -75,6 +75,20 @@ def _scatter_drop(target, idx, src, reduce):
     return target.scatter_reduce_(0, idx, src, reduce=reduce)
 
 
+def _slot_owner(cum, k):
+    """The bucket that owns each slot k of a segmented expansion: cum is
+    the inclusive int32 sum of the buckets' counts (counts >= 0), k the
+    int32 slot indices.  For a slot k < total = cum[-1] this is the first
+    bucket with cum > k, which is the largest bucket with a nonzero count
+    that starts at or before k; a slot k >= total maps to the last bucket
+    with a nonzero count, and every slot maps to 0 when total is 0.  That
+    equals, bit for bit, the JAX package's scatter-max of bucket ids at
+    their starts followed by a cummax, as one parallel binary search with
+    no host read of the total.  Returns int64 bucket ids."""
+    return torch.searchsorted(cum, torch.minimum(k, cum[-1] - 1),
+                              right=True)
+
+
 # --------------------------------------------------------------- bit packing
 
 def pack_codes_host(codes):
@@ -286,12 +300,12 @@ def _probe_join(hf, lengths, sk, hash_len, sum_block):
     tag = (pv >> 31).to(_I32)
     u = torch.cumsum(tag, dim=0, dtype=_I32)
     # at a query position u counts index entries with key < q (equal-key
-    # entries sort after queries by stability) => u = lower_bound
+    # entries sort after queries by stability) => u = lower_bound; the
+    # upper bound is u at the last position of the key's run, which is the
+    # count of index keys <= q: a binary search in the sorted keys
     left = u
-    is_last = torch.cat([kv[1:] != kv[:-1],
-                         torch.ones(1, dtype=torch.bool, device=dev)])
+    ub = torch.searchsorted(sk, kv, right=True, out_int32=True)
     del kv
-    ub = torch.where(is_last, u, 0x7FFFFFFF).flip(0).cummin(0).values.flip(0)
     cnt = ub - left                          # bucket size at query positions
 
     is_query = tag == 0
@@ -351,11 +365,8 @@ def _emit2(packed2, lengths, rk_pad, rleft_pad, rcnt_pad, sid, h0, nh_real,
     cum = torch.cumsum(cnt_s, dim=0, dtype=_I32)
     total = cum[-1]
     starts = cum - cnt_s
-    hdest = torch.where(cnt_s > 0, starts, cap)
-    seed = _scatter_drop(torch.zeros(cap, dtype=_I32, device=dev), hdest,
-                         torch.arange(nqt, dtype=_I32, device=dev), "amax")
-    hidx = seed.cummax(0).values.to(_I64)
     k = torch.arange(cap, dtype=_I32, device=dev)
+    hidx = _slot_owner(cum, k)
     in_range = k < total
 
     dsh = left_s - starts                    # src = slot + (left - start)
@@ -417,14 +428,8 @@ def _cont_canon(out, kc, n_keep, lengths, n1, off_bits):
     cap = out.shape[0]
     k = torch.arange(cap, dtype=_I32, device=dev)
     live = k < n_keep
-    # recover each slot's source read: scatter read starts, fill with cummax
-    cum = torch.cumsum(kc, dim=0, dtype=_I32)
-    starts = cum - kc
-    ridx = torch.arange(n1, dtype=_I32, device=dev)
-    dest = torch.where(kc > 0, starts, cap)
-    seed = _scatter_drop(torch.zeros(cap, dtype=_I32, device=dev), dest,
-                         ridx, "amax")
-    r1 = seed.cummax(0).values.to(_I64)
+    # recover each slot's source read from the reads' keep counts
+    r1 = _slot_owner(torch.cumsum(kc, dim=0, dtype=_I32), k)
 
     ob = off_bits
     r2 = out >> (4 + ob)

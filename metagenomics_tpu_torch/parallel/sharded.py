@@ -73,10 +73,7 @@ def _expand_window(rk, rleft, rcnt, h0, nh, cap):
     cum = torch.cumsum(cnt_s, dim=0, dtype=_I32)
     total = cum[-1]
     starts = cum - cnt_s
-    hdest = torch.where(cnt_s > 0, starts, cap)
-    seed = dov._scatter_drop(torch.zeros(cap, dtype=_I32, device=dev),
-                             hdest, k, "amax")
-    hidx = seed.cummax(0).values.to(_I64)
+    hidx = dov._slot_owner(cum, k)
     src = k.to(_I64) + (left_s - starts)[hidx]
     qid = qid_s[hidx]
     return qid, src, k, total
@@ -382,11 +379,9 @@ class ShardedOverlapPipeline:
         tag = (pv >> 31).to(_I32)
         u = torch.cumsum(tag, dim=0, dtype=_I32)
         left = u
-        is_last = torch.cat([kv[1:] != kv[:-1],
-                             torch.ones(1, dtype=torch.bool, device=dev)])
+        # the key run's upper bound: the count of index keys <= the key
+        ub = torch.searchsorted(sk, kv, right=True, out_int32=True)
         del kv
-        ub = torch.where(is_last, u, 0x7FFFFFFF).flip(0).cummin(0).values \
-            .flip(0)
         cnt = ub - left
         hit = (tag == 0) & (cnt > 0) & (pv != QPAD)
         rkey = torch.where(hit, pv, SENT)
