@@ -1,6 +1,11 @@
 """The comparison that decides `correct`: what the timed path produced,
 against the plain reference (reference/), each number beside its limit.
 
+Where the sample's reads have several lengths, a read found inside a
+longer one is contained: the reference's rows and graph leave out every
+overlap with a contained read at either end, and a contained read's row
+is empty.
+
 Every number compared is exact, so every limit is 0:
 
 - rows_differing: of a sample of reads drawn from the seed (and the four
@@ -14,6 +19,9 @@ Every number compared is exact, so every limit is 0:
   are not exactly the overlaps the reference keeps (transitive ones
   dropped) with reads in the graph, and the reads missing from it that a
   chain of more than dead_end_length reads keeps there;
+- supers_differing (samples of several lengths only): of every read,
+  those whose super read (0 for none) differs from the reference's
+  (reference/contained.py);
 - sorted_reads_differing (assemble): lines of the _sortedReads.fasta
   artifact that differ from the reference's own sorted unique reads;
 - contigs1_differing (assemble): records of contigs1.fasta unlike the
@@ -24,7 +32,8 @@ Every number compared is exact, so every limit is 0:
 
 import numpy as np
 
-from omegabench.reference import contigs, ingest, links, overlaps, reduced
+from omegabench.reference import (contained, contigs, ingest, links,
+                                  overlaps, reduced)
 
 
 class Check:
@@ -151,9 +160,10 @@ def links_check(reads, arrays, min_overlap, log):
     return Check("links_unsound", bad, 0, n)
 
 
-def completeness_check(index, arrays, ids, found, config, log):
+def completeness_check(index, arrays, ids, found, config, log, sup=None):
     """links_differing: each sampled read's links in the graph against the
-    overlaps the reference keeps."""
+    overlaps the reference keeps (sup: the reference's super reads, where
+    the sample has contained reads)."""
     a_id, a_fwd, a_pos, b_id, b_fwd, b_pos = arrays
     present = np.unique(np.concatenate([a_id, b_id]))
     # each link seen from both of its reads: a then b, and b's other
@@ -167,7 +177,7 @@ def completeness_check(index, arrays, ids, found, config, log):
         + d + lens[b_id - 1] - lens[a_id - 1]])
     order = np.lexsort((key, first))
     got = overlaps.split_rows(ids, first[order], key[order])
-    ref = reduced.Reduced(index, config["min_overlap"])
+    ref = reduced.Reduced(index, config["min_overlap"], sup)
     ref.compute(ids, found)
     is_in = np.isin(ids, present)
     need = ref.must_be_present(ids[~is_in], config["dead_end_length"])
@@ -187,26 +197,60 @@ def completeness_check(index, arrays, ids, found, config, log):
     return Check("links_differing", len(bad), 0, len(ids))
 
 
-def sorted_reads_check(reads, path, log):
-    """sorted_reads_differing: the _sortedReads.fasta artifact, one line a
-    read '<id:10> Noncontained|Contained in <super:10> <sequence>', against
-    the reference's reads (every read kept here is non-contained, since
-    all reads of a sample have one length)."""
+def read_lines(path, log):
     try:
         with open(path, "rb") as f:
-            lines = f.read().splitlines()
+            return f.read().splitlines()
     except OSError as exc:
         log("sorted reads: none (%s)" % exc)
-        lines = []
+        return []
+
+
+def sorted_reads_check(reads, lines, log, sup=None):
+    """sorted_reads_differing: the lines of the _sortedReads.fasta
+    artifact, one a read '<id:10> Noncontained|Contained in <super:10>
+    <sequence>', against the reference's reads and super reads (sup;
+    None: every read is non-contained, as in a sample of one length)."""
     n = max(len(lines), reads.count)
     bad = abs(len(lines) - reads.count)
     for i, line in enumerate(lines[:reads.count]):
-        want = b"%10d Noncontained %10d %s" % (
-            i + 1, 0, reads.fwd[i, :reads.lengths[i]].tobytes())
+        s = 0 if sup is None else int(sup[i + 1])
+        want = b"%10d %s %10d %s" % (
+            i + 1, b"Contained in" if s else b"Noncontained", s,
+            reads.fwd[i, :reads.lengths[i]].tobytes())
         bad += line != want
     log("sorted reads: %d lines, %d reference reads, %d differ"
         % (len(lines), reads.count, bad))
     return Check("sorted_reads_differing", bad, 0, n)
+
+
+def sorted_reads_supers(lines):
+    """Super reads [len(lines) + 1] as _sortedReads.fasta lines state
+    them, in the super read's column; -1 where a line has none."""
+    out = np.full(len(lines) + 1, -1, np.int64)
+    out[0] = 0
+    for i, line in enumerate(lines):
+        try:
+            out[i + 1] = int(line[24:34])
+        except ValueError:
+            pass
+    return out
+
+
+def supers_check(sup, got, log):
+    """supers_differing: the reads whose super read in the program (got,
+    by read id; 0 for none) differs from the reference's (sup), over every
+    read of the sample."""
+    n = len(sup) - 1
+    if got is None or len(got) != len(sup):
+        log("supers: the program's %s super reads, the reference's %d"
+            % ("no" if got is None else len(got) - 1, n))
+        return Check("supers_differing", n, 0, n)
+    bad = np.flatnonzero(np.asarray(got, np.int64)[1:] != sup[1:]) + 1
+    log("supers: %d of %d reads contained, %d differ%s"
+        % (int((sup > 0).sum()), n, len(bad),
+           (" (first %s)" % bad[:5].tolist()) if len(bad) else ""))
+    return Check("supers_differing", len(bad), 0, n)
 
 
 def contig_checks(reads, edges, prefix, config, seed, log):
@@ -245,25 +289,34 @@ def contig_checks(reads, edges, prefix, config, seed, log):
             Check("contig_kmers_absent", absent, 0, total)]
 
 
+def several_lengths(reads):
+    return reads.count > 0 and reads.lengths.min() != reads.lengths.max()
+
+
 def check_outputs(outputs, fasta, config, traffic, seed, log):
     """Every check of a run's outputs."""
     mo = config["min_overlap"]
     reads = ingest.load(fasta, mo)
-    if len(set(reads.lengths.tolist())) > 1:
-        raise ValueError("the reference's checks assume reads of one "
-                         "length; this sample has several")
+    # only a sample of several lengths has contained reads
+    sup = contained.supers(reads) if several_lengths(reads) else None
     index = overlaps.StrandIndex(reads)
     stream = outputs.get("stream")
     ids = sample_rows(reads.count, traffic["check_rows"], seed, stream)
-    found = index.overlaps(ids, mo)
+    found = contained.without_contained(index.overlaps(ids, mo), sup)
     edges = outputs.get("edges", [])
     arrays = graph_links(edges) if edges else (np.zeros(0, np.int64),) * 6
     checks = [rows_check(reads, stream, ids, found, log),
               links_check(reads, arrays, mo, log),
-              completeness_check(index, arrays, ids, found, config, log)]
-    if "sorted_reads" in outputs:
-        checks.append(sorted_reads_check(reads, outputs["sorted_reads"],
-                                         log))
+              completeness_check(index, arrays, ids, found, config, log,
+                                 sup)]
+    lines = (read_lines(outputs["sorted_reads"], log)
+             if "sorted_reads" in outputs else None)
+    if sup is not None:
+        got = (outputs.get("supers") if lines is None
+               else sorted_reads_supers(lines))
+        checks.append(supers_check(sup, got, log))
+    if lines is not None:
+        checks.append(sorted_reads_check(reads, lines, log, sup))
     if "contigs" in outputs:
         checks += contig_checks(reads, edges, outputs["contigs"], config,
                                 seed, log)

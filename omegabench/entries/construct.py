@@ -50,7 +50,8 @@ class Construct:
 
     def outputs(self):
         """The last step's graph: of each edge and its twin, the one from
-        the lower read (of a loop, either), as the .unitig file has it."""
+        the lower read (of a loop, either), as the .unitig file has it;
+        and each read's super read (0: not contained)."""
         if self.graph is None:
             return {}
         edges = [(e.source, e.destination, e.orient, e.offset,
@@ -59,7 +60,7 @@ class Construct:
                  for row in self.graph.adj for e in row
                  if e.source < e.destination
                  or (e.source == e.destination and id(e) < id(e.reverse))]
-        return {"edges": edges}
+        return {"edges": edges, "supers": self.ds.super_read_id.copy()}
 
     def release(self):
         self.graph = None

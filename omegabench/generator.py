@@ -12,6 +12,16 @@ bases (genomes and repeat units).  So every seed makes the same overlap
 structure, and the same work, over other sequences.  Reads are
 error-free: the assembler finds exact overlaps, and its users correct or
 trim errors before it.
+
+A configuration may trim its reads.  `"trim": {"source": ..., "length_bins":
+[[lo, hi, weight], ...]}` is a histogram of read lengths after trimming,
+with the public distribution it was taken from in `source`.  Each read,
+each mate on its own, draws a bin by weight and a length uniformly from
+lo to hi, and is cut at its 3' end (the end of its record: read 2 is
+written reverse-complemented) to that length; a bin at read_length keeps
+reads whole.  The lengths come from the `community_seed` too, so every run
+seed trims alike.  Without the key no read is cut and no number more is
+drawn.
 """
 
 import os
@@ -99,8 +109,35 @@ def genomes(config, seed):
     return np.concatenate(pieces), np.asarray(starts, np.int64), comm
 
 
-def _fasta_block(reads, first_id):
-    """Two-line FASTA records `>r<id>` for a [n, read_len] uint8 block."""
+def read_lengths(config, li, n_reads):
+    """Each read's length in library li, in file order, where the
+    configuration trims its reads; None where it does not."""
+    trim = config.get("trim")
+    if trim is None:
+        return None
+    if not str(trim.get("source", "")).strip():
+        raise ValueError("trim needs the source of its length histogram")
+    rl = config["read_length"]
+    bins = np.asarray(trim["length_bins"], np.float64).reshape(-1, 3)
+    lo, hi, weight = bins.T
+    if (lo != np.rint(lo)).any() or (hi != np.rint(hi)).any() \
+            or not ((1 <= lo) & (lo <= hi) & (hi <= rl)).all() \
+            or not (weight > 0).all():
+        raise ValueError("trim bins %s do not fit reads of %d bp"
+                         % (trim["length_bins"], rl))
+    rng = np.random.default_rng([config["community_seed"], 3, li])
+    cum = np.cumsum(weight) / weight.sum()
+    b = np.minimum(np.searchsorted(cum, rng.random(n_reads), side="right"),
+                   len(cum) - 1)
+    span = (hi - lo + 1)[b]
+    off = np.minimum((rng.random(n_reads) * span).astype(np.int64),
+                     span.astype(np.int64) - 1)
+    return lo[b].astype(np.int64) + off
+
+
+def _fasta_block(reads, first_id, lengths=None):
+    """Two-line FASTA records `>r<id>` for a [n, read_len] uint8 block;
+    with `lengths`, each read cut to its own."""
     n, rl = reads.shape
     rec = np.empty((n, 1 + NAME_DIGITS + 1 + rl + 1), dtype=np.uint8)
     rec[:, 0] = ord(">")
@@ -110,7 +147,11 @@ def _fasta_block(reads, first_id):
     rec[:, NAME_DIGITS + 1] = ord("\n")
     rec[:, NAME_DIGITS + 2:-1] = reads
     rec[:, -1] = ord("\n")
-    return rec.tobytes()
+    if lengths is None:
+        return rec.tobytes()
+    end = NAME_DIGITS + 2 + lengths          # each record's last newline
+    rec[np.arange(n), end] = ord("\n")
+    return rec[np.arange(rec.shape[1]) <= end[:, None]].tobytes()
 
 
 def write_sample(config, traffic, seed, out_dir):
@@ -126,10 +167,7 @@ def write_sample(config, traffic, seed, out_dir):
     rl = config["read_length"]
     k = np.arange(rl, dtype=np.int64)
     paths = []
-    stats = {"entities": len(comm["lengths"]),
-             "community_bp": int(comm["lengths"].sum()),
-             "reads": 2 * int(sum(pairs))}
-    stats["mean_coverage"] = stats["reads"] * rl / stats["community_bp"]
+    bases_read = 0
     for li, (lib, n_pairs) in enumerate(zip(libs, pairs)):
         rng = np.random.default_rng([config["community_seed"], 2, li])
         per = pairs_per_entity(comm, n_pairs)
@@ -145,6 +183,8 @@ def write_sample(config, traffic, seed, out_dir):
         span = np.where(circ, ln, ln - ins + 1)
         pos = starts[ent] + (rng.random(len(ent)) * span).astype(np.int64)
         flip = rng.random(len(ent)) < 0.5
+        lens = read_lengths(config, li, 2 * len(ent))
+        bases_read += 2 * len(ent) * rl if lens is None else int(lens.sum())
         path = os.path.join(out_dir, "%s_lib%d.fasta" % (config["name"], li))
         with open(path, "wb") as f:
             for s in range(0, len(ent), PAIRS_PER_BLOCK):
@@ -154,6 +194,12 @@ def write_sample(config, traffic, seed, out_dir):
                                      + k[::-1]]]
                 fl = flip[s:e, None]
                 pair = np.stack([np.where(fl, b, a), np.where(fl, a, b)], 1)
-                f.write(_fasta_block(pair.reshape(-1, rl), 2 * s))
+                f.write(_fasta_block(pair.reshape(-1, rl), 2 * s,
+                                     None if lens is None
+                                     else lens[2 * s:2 * e]))
         paths.append(path)
+    stats = {"entities": len(comm["lengths"]),
+             "community_bp": int(comm["lengths"].sum()),
+             "reads": 2 * int(sum(pairs))}
+    stats["mean_coverage"] = bases_read / stats["community_bp"]
     return paths, stats

@@ -10,6 +10,11 @@ beyond r's end is a prefix of the part of x beyond it.  The overlaps that
 stay are r's links in the graph: where its reads lie one after the other
 along an edge.
 
+Contained reads (reference/contained.py) take no part: where `sup` is
+given, every overlap with a contained read at either end is left out
+before the reduction, so a contained read keeps no link and is never
+required in the graph.
+
 A read that keeps exactly one overlap on each side of it lies inside a
 chain of such reads, which construction merges into one edge; an edge of
 more than `dead_end_length` reads is never removed as a dead end, so the
@@ -18,14 +23,16 @@ reads of a chain that long (or of a closed cycle) are in the graph.
 
 import numpy as np
 
+from omegabench.reference.contained import without_contained
 from omegabench.reference.overlaps import split_rows
 
 
 class Reduced:
-    def __init__(self, index, min_overlap):
+    def __init__(self, index, min_overlap, sup=None):
         self.index = index
         self.reads = index.reads
         self.min_overlap = min_overlap
+        self.sup = sup         # super read by id, or None: none contained
         self.links = {}        # id: sorted keys of the overlaps it keeps
         self.degree = {}       # id: (kept after its forward strand, before)
 
@@ -39,7 +46,7 @@ class Reduced:
                 return
             overlaps = self.index.overlaps(ids, self.min_overlap)
         ids = np.asarray(ids, np.int64)
-        r1, key = overlaps
+        r1, key = without_contained(overlaps, self.sup)
         kept = keep_irreducible(self.reads, r1, key)
         rows = split_rows(ids, r1[kept], key[kept])
         for r in ids.tolist():
@@ -94,6 +101,8 @@ class Reduced:
 
 def keep_irreducible(reads, r1, key):
     """Mask of the overlaps (r1, key) that construction keeps."""
+    if not len(key):
+        return np.zeros(0, bool)
     x = key >> 18
     s_r = (key >> 17) & 1
     s_x = (key >> 16) & 1

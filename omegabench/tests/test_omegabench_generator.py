@@ -129,3 +129,97 @@ def test_reads_and_inserts_match_config(tmp_path, name, traffic):
         assert np.mean(inserts) == pytest.approx(lib["insert_mean_bp"],
                                                  rel=0.03)
     assert stats["reads"] == 2 * sum(pairs)
+
+
+# ------------------------------------------------------------ trimming
+
+# sha256 of every file of a tiny sample, written by the generator before
+# it could trim: without `trim` a sample stays byte for byte the same
+UNTRIMMED = {
+    ("cami-low", "construct", 5):
+        "a73a3c7faf2e6a158bcbfffadca222a64cfeb838a732a7b7110d3a930666b625",
+    ("cami-low", "construct", 2 ** 31 + 77):
+        "6113d0d9d41d3d25cce037dfe4ec443288fb4611047a6ec13e232784f89497a6",
+    ("cami-medium", "assemble", 5):
+        "cdf4f36272823737606e0b178afd7f11a7842dc808f7dfd0d1b0ec0b5b20db38",
+    ("cami-medium", "assemble", 2 ** 31 + 77):
+        "370f28221df290d4fd07f405285885fb56e6fb27d302c79bb1db984c1626008b",
+}
+
+
+@pytest.mark.parametrize("name,traffic,seed", sorted(UNTRIMMED))
+def test_untrimmed_sample_unchanged(tmp_path, name, traffic, seed):
+    c = config(name, **TINY_CONFIG)
+    paths, stats = generator.write_sample(
+        c, {"read_pairs": TINY_PAIRS[traffic]}, seed, str(tmp_path))
+    assert digest(paths) == UNTRIMMED[(name, traffic, seed)]
+    assert stats["mean_coverage"] == (stats["reads"] * c["read_length"]
+                                      / stats["community_bp"])
+
+
+def trimmed_and_whole(tmp_path, name, traffic, seed, trim):
+    """Per library: the reads of a trimmed sample and of the same sample
+    untrimmed, (matrix, lengths) each."""
+    out = []
+    for sub, t in (("trim", trim), ("whole", None)):
+        c = config(name, **TINY_CONFIG)
+        if t is not None:
+            c["trim"] = t
+        os.makedirs(tmp_path / sub)
+        paths, _ = generator.write_sample(
+            c, {"read_pairs": TINY_PAIRS[traffic]}, seed,
+            str(tmp_path / sub))
+        out.append([read_fasta(p) for p in paths])
+    return list(zip(*out))
+
+
+@pytest.mark.parametrize("name,traffic", [("cami-low", "construct"),
+                                          ("cami-medium", "assemble")])
+def test_trim_follows_config(tmp_path, name, traffic):
+    """Each bin's share of the reads, lengths uniform within a bin, and
+    cuts at the 3' end only: each trimmed read is a prefix of the read the
+    same draw makes untrimmed."""
+    trim = {"source": "none: a made-up histogram for tests",
+            "length_bins": [[150, 150, 6], [100, 149, 1], [60, 99, 3]]}
+    for (mat, lens), (whole, wl) in trimmed_and_whole(tmp_path, name,
+                                                      traffic, 11, trim):
+        assert (wl == 150).all() and len(lens) == len(wl)
+        assert lens.min() == 60 and lens.max() == 150
+        share = [np.mean(lens == 150), np.mean((lens >= 100) & (lens < 150)),
+                 np.mean(lens < 100)]
+        assert share == pytest.approx([0.6, 0.1, 0.3], abs=0.03)
+        # uniform over the 40 lengths of 60-99: each tenth of the range
+        # about a tenth of that bin
+        low = lens[lens < 100]
+        tenth = np.bincount((low - 60) // 4, minlength=10)
+        assert np.abs(tenth / len(low) - 0.1).max() < 0.03
+        k = np.arange(mat.shape[1])[None, :]
+        assert (np.where(k < lens[:, None], whole[:, :mat.shape[1]] == mat,
+                         mat == 0)).all()
+
+
+def test_trim_lengths_same_for_every_run_seed(tmp_path):
+    trim = {"source": "none: a made-up histogram for tests",
+            "length_bins": [[150, 150, 1], [41, 120, 1]]}
+    a = trimmed_and_whole(tmp_path / "a", "cami-low", "construct", 3, trim)
+    b = trimmed_and_whole(tmp_path / "b", "cami-low", "construct",
+                          2 ** 31 + 9, trim)
+    for ((ma, la), _), ((mb, lb), _) in zip(a, b):
+        assert np.array_equal(la, lb)
+        assert not np.array_equal(ma, mb)
+
+
+@pytest.mark.parametrize("trim", [
+    {"source": "none: test", "length_bins": [[60, 151, 1]]},
+    {"source": "none: test", "length_bins": [[0, 149, 1]]},
+    {"source": "none: test", "length_bins": [[90, 80, 1]]},
+    {"source": "none: test", "length_bins": [[150, 150, 1], [60, 149, 0]]},
+    {"source": "", "length_bins": [[60, 149, 1]]},
+    {"length_bins": [[60, 149, 1]]}])
+def test_trim_refuses_a_histogram_it_cannot_draw(tmp_path, trim):
+    """Bins outside 1..read_length, empty ones, a weight of 0 and a
+    histogram with no source are refused."""
+    c = config("cami-low", **TINY_CONFIG)
+    c["trim"] = trim
+    with pytest.raises(ValueError):
+        generator.write_sample(c, {"read_pairs": [10]}, 1, str(tmp_path))

@@ -13,10 +13,18 @@ import numpy as np
 import pytest
 
 from omegabench import control, layout, run
-from omegabench_helpers import BENCH_DIR, ROOT, benchmark, tiny_copy
+from omegabench_helpers import BENCH_DIR, ROOT, TRIM, benchmark, tiny_copy
 
 CELLS = [w["name"] for w in benchmark()["workloads"]]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+# the numbers a sample of one length is checked by, in the result's order
+ONE_LENGTH = {"cami-low.construct": ["rows_differing", "links_unsound",
+                                     "links_differing"],
+              "cami-medium.assemble": ["rows_differing", "links_unsound",
+                                       "links_differing",
+                                       "sorted_reads_differing",
+                                       "contigs1_differing",
+                                       "contig_kmers_absent"]}
 
 
 @pytest.fixture
@@ -51,6 +59,7 @@ def test_tiny_run_is_correct(on_cpu, tiny, cell, trace):
     assert result["correct"] is True
     assert result["attempted"] >= 1 and result["failed"] == 0
     assert all(c.value == 0 and c.limit == 0 for c in checks)
+    assert list(result["checks"]) == ONE_LENGTH[cell]
     bench = benchmark()
     names = {m["name"] for m in (bench["per_layer"] if trace
                                  else bench["end_to_end"])
@@ -103,7 +112,8 @@ def test_forbidden_names_compare_whole():
 def test_reference_loads_neither_package():
     code = ("import sys; sys.path.insert(0, %r);"
             "import omegabench.reference.ingest, "
-            "omegabench.reference.overlaps, omegabench.reference.links;"
+            "omegabench.reference.overlaps, omegabench.reference.links, "
+            "omegabench.reference.contained, omegabench.reference.reduced;"
             "print(sorted({m.split('.')[0] for m in sys.modules}))" % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
@@ -139,7 +149,9 @@ def test_control_is_not_correct(tiny, cell):
     allows, in the program's place, fails the rows check."""
     c = layout.Cell(cell, benchmark(), root=tiny)
     for seed in (1, 2, 3):
-        checks, correct = control.run_control(c, seed, lambda m: None)
+        controls = control.run_control(c, seed, lambda m: None)
+        assert list(controls) == ["overlap"]
+        checks, correct = controls["overlap"]
         assert not correct
         assert checks[0].value > 0
 
@@ -260,6 +272,148 @@ def test_fault_is_not_correct(on_cpu, tiny, monkeypatch, cell, fault):
         by = {c.name: c for c in checks}
         assert by[CAUGHT_BY[fault]].value > 0
         assert by["links_unsound"].value == 0
+
+
+# ------------------------------------------------------------ trimmed reads
+
+@pytest.fixture(scope="module")
+def tiny_trimmed(tmp_path_factory):
+    return tiny_copy(tmp_path_factory.mktemp("trimmed"), trim=TRIM)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("engine", ["hybrid", "device"])
+def test_tiny_trimmed_run_is_correct(on_cpu, monkeypatch, tiny_trimmed, cell,
+                                     engine):
+    """Reads of several lengths: the port under the engines the CPU runs
+    reads 0 on every number, super reads among them, with contained reads
+    in the sample."""
+    monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine)
+    result, checks, logs = run_tiny(tiny_trimmed, cell)
+    assert result["correct"] is True and result["failed"] == 0
+    names = ONE_LENGTH[cell][:3] + ["supers_differing"] + ONE_LENGTH[cell][3:]
+    assert list(result["checks"]) == names
+    assert all(c.value == 0 for c in checks)
+    supers = [m for m in logs if m.startswith("supers:")]
+    assert supers and int(supers[0].split()[1]) > 0
+
+
+def fault_contained_records_kept(monkeypatch):
+    """Contained reads' records left in the stream: every second
+    contained read is let through the hybrid's mask as if it were not
+    contained."""
+    from metagenomics_tpu_torch.graph import build
+    resolve = build._resolve_supers
+
+    def leaky(*a, **k):
+        sup, first = resolve(*a, **k)
+        sup = sup.copy()
+        sup[np.flatnonzero(sup)[::2]] = 0
+        return sup, first
+    monkeypatch.setattr(build, "_resolve_supers", leaky)
+
+
+def fault_contained_read_in_graph(monkeypatch):
+    """A contained read left in the graph: the replay is handed the two
+    shards' streams as they were before contained reads were masked out,
+    while the stream the check reads and the super reads stay right."""
+    from metagenomics_tpu_torch import native
+    from metagenomics_tpu_torch.ops import device_overlap as dov
+    raw = {}
+    scan = native.scan_canon
+    stream = dov.DeviceOverlapPipeline.stream_canon_raw_mixed
+    replay = native.build_graph_stream_canon_words
+
+    def scan_kept(*a, **k):
+        raw["cpu"] = scan(*a, **k)
+        return raw["cpu"]
+
+    def stream_kept(self):
+        raw["dev"] = stream(self)
+        return raw["dev"]
+
+    def unmasked(lengths, counts, words, off_bits, *a, **k):
+        counts_c, words_c = raw["cpu"][:2]
+        counts_d, words_d = raw["dev"]
+        ob = np.uint32(off_bits)
+        r1_d = np.repeat(np.arange(len(counts_d)), counts_d)
+        r2_d = (words_d >> (ob + np.uint32(4))).astype(np.int64)
+        edge = (((words_d >> ob) & np.uint32(4)) != 0) & (r1_d <= r2_d)
+        r1 = np.concatenate([np.repeat(np.arange(len(counts_c)), counts_c),
+                             r1_d[edge]])
+        w = np.concatenate([words_c, words_d[edge]])
+        order = np.argsort(r1, kind="stable")
+        return replay(lengths, np.bincount(r1, minlength=len(counts)),
+                      w[order], off_bits, *a, **k)
+    monkeypatch.setattr(native, "scan_canon", scan_kept)
+    monkeypatch.setattr(dov.DeviceOverlapPipeline, "stream_canon_raw_mixed",
+                        stream_kept)
+    monkeypatch.setattr(native, "build_graph_stream_canon_words", unmasked)
+
+
+def fault_wrong_super(monkeypatch):
+    """A wrong super read: each contained read names the read after its
+    super read (the mask, which needs only whether, stays right)."""
+    from metagenomics_tpu_torch.graph import build
+    resolve = build._resolve_supers
+
+    def shifted(*a, **k):
+        sup, first = resolve(*a, **k)
+        n = len(sup) - 1
+        return np.where(sup > 0, sup % n + 1, 0), first
+    monkeypatch.setattr(build, "_resolve_supers", shifted)
+
+
+def fault_noncontained_line(monkeypatch):
+    """The sorted-reads artifact writes every contained read as
+    Noncontained."""
+    from metagenomics_tpu_torch import dataset
+    save = dataset.Dataset.save_reads
+
+    def noncontained(self, path):
+        sup = self.super_read_id.copy()
+        self.super_read_id[:] = 0
+        try:
+            save(self, path)
+        finally:
+            self.super_read_id[:] = sup
+    monkeypatch.setattr(dataset.Dataset, "save_reads", noncontained)
+
+
+TRIMMED_FAULTS = [
+    (cell, f, number) for cell in CELLS for f, number in (
+        (fault_contained_records_kept, "rows_differing"),
+        (fault_contained_read_in_graph, "links_differing"),
+        (fault_wrong_super, "supers_differing"))]
+TRIMMED_FAULTS.append(("cami-medium.assemble", fault_noncontained_line,
+                       "sorted_reads_differing"))
+
+
+@pytest.mark.parametrize("cell,fault,number", TRIMMED_FAULTS, ids=[
+    "%s-%s" % (c, f.__name__) for c, f, _ in TRIMMED_FAULTS])
+def test_trimmed_fault_moves_its_number(on_cpu, tiny_trimmed, monkeypatch,
+                                        cell, fault, number):
+    fault(monkeypatch)
+    result, checks, _ = run_tiny(tiny_trimmed, cell)
+    by = {c.name: c for c in checks}
+    assert result["correct"] is False
+    assert by[number].value > 0
+    assert by["links_unsound"].value == 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_trimmed_control_is_not_correct(tiny_trimmed, cell):
+    """On a sample of several lengths both controls run, and each fails
+    the number its broken guarantee moves."""
+    c = layout.Cell(cell, benchmark(), root=tiny_trimmed)
+    number = {"overlap": "rows_differing",
+              "first-container": "supers_differing"}
+    for seed in (1, 2, 3):
+        controls = control.run_control(c, seed, lambda m: None)
+        assert list(controls) == list(number)
+        for kind, (checks, correct) in controls.items():
+            assert not correct
+            assert {x.name: x.value for x in checks}[number[kind]] > 0
 
 
 # ------------------------------------------------------------ on a card
