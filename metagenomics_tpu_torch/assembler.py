@@ -90,11 +90,17 @@ class Assembler:
         tests/test_torch_golden_host.py, tests/test_torch_engines.py,
         tests/test_torch_sharded.py).
         The engine that built the graph is left in self.engine ("device"
-        when hybrid fell back to the device pipeline).
+        when hybrid fell back to the device pipeline).  After any engine
+        the recorder counts the data set's unique reads and, of them, the
+        contained ones (assembler.unique_reads, assembler.contained_reads).
         """
         with timing.phase_clock("buildOverlapGraphFromHashTable",
                                 log=self.log, src=__file__):
             self._build_engine(graph)
+        ds = graph.ds
+        timing.count("assembler.unique_reads", ds.number_of_unique_reads)
+        timing.count("assembler.contained_reads",
+                     int((ds.super_read_id[1:] != 0).sum()))
 
     def _build_engine(self, graph):
         import os

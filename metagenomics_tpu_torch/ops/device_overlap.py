@@ -744,8 +744,13 @@ class DeviceOverlapPipeline:
         """Hybrid mixed-mode stream: canonical edge records (smaller
         endpoint, UNFILTERED by containment) plus every containment hit,
         as packed words carrying their fe flags (bit 2 edge, bit 3 cont).
-        Returns (counts int64, words uint32) or None."""
+        Returns (counts int64, words uint32) or None.  The containment
+        hits among the fetched words are counted on the host
+        (overlap.cont_hits)."""
         if self.off_bits < 0:
             return None
         outs, counts = self._emit_chunks(True, dedup=True)
-        return counts, _fetch_words(outs)
+        words = _fetch_words(outs)
+        count("overlap.cont_hits", int(np.count_nonzero(
+            words & np.uint32(8 << self.off_bits))))
+        return counts, words

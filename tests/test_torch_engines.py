@@ -5,10 +5,15 @@ Hybrid: across split fractions and dataset shapes, the .unitig bytes and
 the contained-read marks (super_read_id) equal the native engine's and the
 JAX hybrid engine's, and every case proves that the hybrid path ran (the
 CPU scan returned a shard and the device pipeline probed from row a > 1).
+Trimmed 2x300 bp reads (omegabench's cami-low-miseq300 bins over a tiny
+community): 9-bit packed words and containment at 41-300 bp, the hybrid
+against the native engines of both packages and the JAX hybrid, its super
+reads against the benchmark's plain reference, mate pairs remapped alike.
 Host: the .unitig and sorted-reads bytes equal the JAX host engine's over
 the min_overlap sweep of tests/test_engine_lsweep.py.  The sharded engine's
 tests are tests/test_torch_sharded*.py and tests/test_torch_distributed.py."""
 
+import json
 import os
 import random
 import tempfile
@@ -104,9 +109,16 @@ def _saved(ds, graph):
                 tuple(ds.super_read_id.tolist()))
 
 
-def _hybrid(pkg, se, frac, native, monkeypatch):
+def _mate_pairs(ds):
+    return tuple(tuple(getattr(ds, k).tolist())
+                 for k in ("mp_rid", "mp_mate", "mp_orient", "mp_dataset"))
+
+
+def _hybrid(pkg, se, frac, native, monkeypatch, paired=False):
     """Build with build_hybrid; record the CPU shard and, for the port, the
-    device pipeline's first probed row to prove the hybrid path ran."""
+    device pipeline's first probed row to prove the hybrid path ran.  With
+    paired, se is read as one paired-end file, and the mate pairs come
+    back after the saved artifacts."""
     from metagenomics_tpu_torch.ops import device_overlap as tdo
     seen = {"rows": [], "shards": []}
     scan = native.scan_canon
@@ -125,24 +137,34 @@ def _hybrid(pkg, se, frac, native, monkeypatch):
         mp.setenv("MGTPU_HYBRID_CPU_FRAC", str(frac))
         mp.setattr(native, "scan_canon", scan_canon)
         mp.setattr(tdo, "DeviceOverlapPipeline", Pipeline)
-        ds, graph = _graph(pkg, [], [se], 40)
+        files = ([se], []) if paired else ([], [se])
+        ds, graph = _graph(pkg, *files, 40)
         assert graph.build_hybrid(), "hybrid refused the data set"
     assert len(seen["shards"]) == 1 and seen["shards"][0] is not None
     if pkg == "torch":
         a = 1 + int(ds.number_of_unique_reads * frac)
         assert seen["rows"] == [a] and a > 1
-    return _saved(ds, graph)
+    return _saved(ds, graph) + ((_mate_pairs(ds),) if paired else ())
 
 
-def _hybrid_case(se, frac, native, jax_native, monkeypatch):
+def _hybrid_case(se, frac, native, jax_native, monkeypatch, paired=False,
+                 jax_full_native=False):
+    """The port's hybrid against its native engine and the JAX hybrid
+    (with jax_full_native, the JAX native engine too)."""
     monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
-    got = _hybrid("torch", se, frac, native, monkeypatch)
-    ds, graph = _graph("torch", [], [se], 40)
+    got = _hybrid("torch", se, frac, native, monkeypatch, paired)
+    files = ([se], []) if paired else ([], [se])
+    ds, graph = _graph("torch", *files, 40)
     assert graph.build_full_native()
     want = _saved(ds, graph)
     assert got[2] == want[2], "supers differ from the native engine"
     assert got[0] == want[0] and len(got[0]) > 0
-    assert got == _hybrid("jax", se, frac, jax_native, monkeypatch)
+    if jax_full_native:
+        ds, graph = _graph("jax", *files, 40)
+        assert graph.build_full_native()
+        assert got[:3] == _saved(ds, graph), "differs from the JAX native"
+    assert got == _hybrid("jax", se, frac, jax_native, monkeypatch, paired)
+    return got
 
 
 @pytest.mark.parametrize("frac", [0.25, 0.5, 0.85])
@@ -160,6 +182,61 @@ def test_hybrid_mixed_lengths(name, frac, native_lib, jax_native_lib,
     """Containment resolved globally across the shards."""
     _hybrid_case(os.path.join(GOLDEN, name), frac, native_lib,
                  jax_native_lib, monkeypatch)
+
+
+MISEQ300 = os.path.join(REPO, "omegabench", "configs",
+                        "cami-low-miseq300.json")
+
+
+def _trimmed_sample(tmp_path, seed, pairs=1500):
+    """One interleaved paired-end file of the trimmed 2x300 configuration
+    (its read length, 550 bp inserts and length bins) over a community cut
+    to 4 genomes and 2 circular elements: ~3,000 reads of 41-300 bp, about
+    half of them contained."""
+    from omegabench import generator
+    with open(MISEQ300) as f:
+        config = json.load(f)
+    config.update(genomes=4, circular_elements=2, length_scale=0.003)
+    paths, _ = generator.write_sample(config, {"read_pairs": [pairs]}, seed,
+                                      str(tmp_path))
+    return paths[0]
+
+
+TRIMMED = [(7, 0.5, False), (2 ** 31 + 11, 0.9, True), (3, 0.25, True)]
+
+
+@pytest.mark.parametrize("seed,frac,paired", TRIMMED)
+def test_hybrid_trimmed_300bp(tmp_path, seed, frac, paired, native_lib,
+                              jax_native_lib, monkeypatch):
+    """Reads of 41-300 bp (9 offset bits): the hybrid's .unitig,
+    _sortedReads.fasta, super reads and (paired) mate pairs equal the JAX
+    hybrid's, and the graph and super reads both native engines'."""
+    from metagenomics_tpu_torch.ops.device_overlap import canon_off_bits
+    se = _trimmed_sample(tmp_path, seed)
+    unitig, sorted_reads, supers = _hybrid_case(
+        se, frac, native_lib, jax_native_lib, monkeypatch, paired,
+        jax_full_native=True)[:3]
+    n = len(supers) - 1
+    assert n >= 1024 and canon_off_bits(n, 300, 40) == 9
+    assert 0 < sum(s > 0 for s in supers) < n
+    assert b"Contained in" in sorted_reads
+
+
+@pytest.mark.parametrize("seed", [7, 2 ** 31 + 11])
+def test_hybrid_trimmed_supers_equal_reference(tmp_path, seed, native_lib,
+                                              torch_cpu):
+    """The port's hybrid marks the contained reads of a trimmed 2x300
+    sample with the super reads omegabench's plain reference finds from
+    the sequences alone (the lowest-numbered of the longest containers)."""
+    from omegabench.reference import contained, ingest
+    se = _trimmed_sample(tmp_path, seed)
+    ds, graph = _graph("torch", [se], [], 40)
+    assert graph.build_hybrid()
+    reads = ingest.load([se], 40)
+    assert reads.count == ds.number_of_unique_reads
+    want = contained.supers(reads)
+    assert (want > 0).sum() > 0
+    np.testing.assert_array_equal(ds.super_read_id, want)
 
 
 @pytest.fixture(scope="module")

@@ -313,3 +313,131 @@ def test_profiler_trace_holds_the_spans(rec, tmp_path):
                        <= inner["ts"] + inner["dur"] for e in ops)
     recorded = {s.name: s for s in _spans(rec)}
     assert recorded["inner.span"].parent == recorded["outerPhase"].id
+
+
+# ------------------------------------------------ containment counters
+
+def _rc(s):
+    return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+
+
+@pytest.fixture
+def mixed_fasta(tmp_path):
+    """Five unique reads: a 150 bp read holding an 80 bp read at 30 on its
+    strand and another at 60 on the other strand (each a placement
+    strictly inside it, found through its first and its last l-mer: 4
+    containment hits), an unrelated 150 bp and an unrelated 80 bp read.
+    So 5 unique reads, 2 contained."""
+    rng = np.random.default_rng(11)
+    bases = lambda n: "".join("ACGT"[i]  # noqa: E731
+                              for i in rng.integers(0, 4, n))
+    g = bases(200)
+    reads = [g[:150], g[30:110], _rc(g[60:140]), bases(150), bases(80)]
+    path = tmp_path / "mixed.fasta"
+    path.write_text("".join(">r%d\n%s\n" % (i, s)
+                            for i, s in enumerate(reads)))
+    return str(path)
+
+
+def _build_with(engine, se, monkeypatch):
+    from metagenomics_tpu_torch.assembler import Assembler
+    from metagenomics_tpu_torch.config import AssemblerConfig
+    from metagenomics_tpu_torch.dataset import Dataset
+    from metagenomics_tpu_torch.graph import OverlapGraph
+    monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine)
+    cfg = AssemblerConfig(min_overlap=40, single_end_files=[se])
+    ds = Dataset([], [se], 40, log=_quiet)
+    asm = Assembler(cfg, log=_quiet)
+    asm.dataset = ds
+    asm._build(OverlapGraph(ds, cfg, log=_quiet))
+    return asm, ds
+
+
+def _cont_hits_counted(rec):
+    return [x for x in rec.snapshot() if isinstance(x, timing.Count)
+            and x.name == "overlap.cont_hits"]
+
+
+@pytest.mark.parametrize("engine", ["native", "device", "host", "hybrid"])
+def test_cont_hits_only_from_the_mixed_stream(rec, monkeypatch, mixed_fasta,
+                                              engine):
+    """Every engine marks the 2 contained reads of the hand-made set; none
+    streams the hybrid's mixed words (hybrid falls back to the device
+    engine below 1024 reads, which resolves containment on the device), so
+    none counts a containment hit."""
+    asm, ds = _build_with(engine, mixed_fasta, monkeypatch)
+    assert ds.number_of_unique_reads == 5
+    assert int((ds.super_read_id[1:] != 0).sum()) == 2
+    assert _cont_hits_counted(rec) == []
+
+
+@pytest.mark.parametrize("engine", ["native", "device", "host", "hybrid"])
+def test_construction_counts_unique_and_contained(rec, monkeypatch,
+                                                 mixed_fasta, engine):
+    """Assembler._build counts the unique and the contained reads once a
+    construction, whichever engine built it."""
+    _build_with(engine, mixed_fasta, monkeypatch)
+    for name, value in (("assembler.unique_reads", 5),
+                        ("assembler.contained_reads", 2)):
+        counted = [x for x in rec.snapshot()
+                   if isinstance(x, timing.Count) and x.name == name]
+        assert len(counted) == 1 and _counts(rec, name) == value
+
+
+def test_cont_hits_are_the_fetched_containment_words(rec, monkeypatch,
+                                                     mixed_fasta):
+    """stream_canon_raw_mixed counts the containment hits among the words
+    it fetched, on the host: no read-back more than before."""
+    from metagenomics_tpu_torch.dataset import Dataset
+    from metagenomics_tpu_torch.ops.device_overlap import (
+        DeviceOverlapPipeline)
+    monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
+    ds = Dataset([], [mixed_fasta], 40, log=_quiet)
+    pipeline = DeviceOverlapPipeline(ds, 40)
+    counts, words = pipeline.stream_canon_raw_mixed()
+    fe = (words >> np.uint32(pipeline.off_bits)) & np.uint32(15)
+    assert int(((fe & 8) != 0).sum()) == 4
+    assert _counts(rec, "overlap.cont_hits") == 4
+    assert _counts(rec, "device.syncs") == 5
+
+
+def test_uniform_construction_counts_no_cont_hits(rec, monkeypatch):
+    """Reads of one length under the hybrid engine: none contained, every
+    unique read counted, and no containment hit counted."""
+    asm, ds = _build_with("hybrid", os.path.join(DATA, "se_small.fasta"),
+                          monkeypatch)
+    assert asm.engine == "hybrid" and ds.number_of_unique_reads >= 1024
+    assert int((ds.super_read_id[1:] != 0).sum()) == 0
+    assert _counts(rec, "assembler.unique_reads") == \
+        ds.number_of_unique_reads
+    assert _counts(rec, "assembler.contained_reads") == 0
+    assert not any(isinstance(x, timing.Count) and x.name in (
+        "overlap.cont_hits", "trace.unclosed") for x in rec.snapshot())
+
+
+def test_hybrid_counts_its_device_shards_containment_hits(
+        rec, monkeypatch, tmp_path):
+    """On a trimmed 2x300 bp sample the hybrid engine counts, once a
+    construction, the containment hits of its device shard's stream and
+    the contained reads of the whole data set."""
+    from metagenomics_tpu_torch.ops.device_overlap import (
+        DeviceOverlapPipeline)
+    from test_torch_engines import _trimmed_sample
+    seen = []
+    stream = DeviceOverlapPipeline.stream_canon_raw_mixed
+
+    def kept(self):
+        out = stream(self)
+        seen.append(int(((out[1] >> np.uint32(self.off_bits + 3)) & 1).sum()))
+        return out
+    monkeypatch.setattr(DeviceOverlapPipeline, "stream_canon_raw_mixed", kept)
+    asm, ds = _build_with("hybrid", _trimmed_sample(tmp_path, 5),
+                          monkeypatch)
+    assert asm.engine == "hybrid" and len(seen) == 1 and seen[0] > 0
+    assert len(_cont_hits_counted(rec)) == 1
+    assert _counts(rec, "overlap.cont_hits") == seen[0]
+    assert _counts(rec, "assembler.unique_reads") == \
+        ds.number_of_unique_reads
+    assert _counts(rec, "assembler.contained_reads") == \
+        int((ds.super_read_id[1:] != 0).sum()) > 0
