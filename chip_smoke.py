@@ -17,6 +17,17 @@ Phases (any failure exits non-zero; nothing is caught):
      repeats the checks on its full code matrix); starts -1 and
      lmax - l + 1 make the standalone form raise, and in the flagged form
      set the flag and give 0 there, the plain version's value elsewhere;
+     the emit_verify kernel (csrc/emit_verify.cu, _emit2 on the card) is
+     bit-equal to the plain _emit2_torch in the slots callers read (the
+     first n_keep survivors, keep_counts, n_keep) in every mode, in both
+     survivor layouts, at one length and mixed lengths, on all rows and
+     on the hybrid's shard, on a later chunk of a multi-chunk plan and
+     with spare slots past the total, and launches once under
+     torch.cuda.set_sync_debug_mode("error"); then at each benchmark
+     cell's shapes (its sample from omegabench/, the hybrid's shard and
+     mode), where both are timed in turns beside the bound and the share
+     of slots whose rows the kernel compares is printed (counted by the
+     numpy model tests/emit_model.py);
   3. golden configs: the port's CLI on cuda with the device, hybrid and
      host engines writes all 12 artifacts byte-equal to golden/out/<cfg>/
      (and the normalized log equal to the reference log) for the nine
@@ -79,11 +90,12 @@ or hybrid run must launch each exactly once, a sharded run exactly once a
 shard (dp * ix; the dry run's sweep is checked in total), and phase 6's
 bench path (stage table, run_once, device-only and hybrid runs) exactly
 four times, and phase 7's fuzz runs once each a device or hybrid run and
-once a shard a sharded run.  The main path is phase 4's
-`auto` (hybrid) run.  The smoke fails if jax or any module of the JAX
-package (metagenomics_tpu) was imported.  The last two lines are the
-kernels record and {"ok": true, "device": ...}.  Exits non-zero without
-a result when no CUDA device is available.
+once a shard a sharded run.  emit_verify's count is printed beside them
+(one a chunk); each device or hybrid run of phase 4 must launch it.  The
+main path is phase 4's `auto` (hybrid) run.  The smoke fails if jax or
+any module of the JAX package (metagenomics_tpu) was imported.  The last
+two lines are the kernels record and {"ok": true, "device": ...}.  Exits
+non-zero without a result when no CUDA device is available.
 """
 
 import contextlib
@@ -128,6 +140,15 @@ KERNEL_SHAPES = [(3, 50, 11), (300, 100, 39), (64, 130, 64),
 
 # the kernels of the port's main path, each with its own launch counter
 KERNELS = ("window_hash", "window_hash_at")
+
+# _emit2's modes (check_cont, dedup): stream(check_cont=False) (the
+# bench's device-only path); stream() and stream_canon(True); the hybrid's
+# canonical stream (one length); the hybrid's canonical stream with every
+# containment hit (mixed lengths)
+EMIT_MODES = [(False, False), (True, False), (False, True), (True, True)]
+
+# the benchmark's samples for the emit_verify check at the cells' shapes
+CELL_SEED = 3150000001
 
 # the card's peak rates for bound_ms (NVIDIA's data sheet, H100 SXM):
 # device memory, and 32-bit operations outside the tensor cores
@@ -311,6 +332,7 @@ def kernel_check(torch, window_hash, rng):
             "rows [1:] of %s" % label))
     bad_start_check(torch, window_hash, rng)
     stream_check(torch, window_hash)
+    emit_check(torch)
     return err
 
 
@@ -328,6 +350,182 @@ def stream_check(torch, window_hash):
                              "current stream's %s" % (got, want))
     log("  %-52s %s" % ("launch stream handle", "the current stream's, on "
                         "the default stream and another"))
+
+
+def _quiet(*args, **kwargs):
+    pass
+
+
+def emit_args(p, check_cont, off_bits, uniform_len, chunk=0, cap=None):
+    """The positional arguments of _emit2 on chunk `chunk` of pipeline p's
+    plan (cap: the plan's unless given)."""
+    pcap, nqt, chunks = p._plan_chunks()
+    h0, nh = chunks[chunk]
+    rk_pad, rleft_pad, rcnt_pad = p._padded(nqt)
+    return (p.packed2, p.lengths, rk_pad, rleft_pad, rcnt_pad, p.sid, h0, nh,
+            p.row0, p.hash_len, nqt, cap or pcap, p.npos, p.w, p.qw_max,
+            check_cont, off_bits, uniform_len)
+
+
+def emit_equal(torch, args, dedup, label):
+    """The emit_verify kernel (_emit2 on CUDA tensors) vs the plain
+    _emit2_torch on the same arguments: the first n_keep survivors (words,
+    or r2 and meta), keep_counts and n_keep must be bit-equal.  Returns
+    n_keep."""
+    from metagenomics_tpu_torch.ops import device_overlap as dov
+    got = dov._emit2(*args, dedup=dedup)
+    want = dov._emit2_torch(*args, dedup=dedup)
+    torch.cuda.synchronize()
+    nk = int(want[2])
+    gout, wout = got[0], want[0]
+    if not isinstance(gout, tuple):
+        gout, wout = (gout,), (wout,)
+    same = (int(got[2]) == nk and got[1].dtype == want[1].dtype
+            and torch.equal(got[1], want[1])
+            and all(g.dtype == w.dtype and torch.equal(g[:nk], w[:nk])
+                    for g, w in zip(gout, wout)))
+    log("  %-64s %s" % (label, "bit-equal (%d survivors)" % nk if same
+                        else "MISMATCH"))
+    if not same:
+        raise SystemExit("emit_verify disagrees with the plain _emit2 at %s "
+                         "(n_keep %d vs %d)" % (label, int(got[2]), nk))
+    return nk
+
+
+def emit_check(torch):
+    """Phase 2's emit_verify check on the golden sets: every mode, both
+    survivor layouts, one length (se_small) and mixed lengths (se_mixlen),
+    all rows and the hybrid's shard of the top tenth; a later chunk of a
+    multi-chunk plan; spare slots past the total; one launch under the
+    sync debug mode "error"."""
+    from metagenomics_tpu_torch.dataset import Dataset
+    from metagenomics_tpu_torch.ops import device_overlap as dov
+    from metagenomics_tpu_torch.ops import emit_verify
+    cuda = torch.device("cuda", 0)
+    emit_verify.launches = 0
+    calls = 0
+    for name in ("se_small", "se_mixlen"):
+        ds = Dataset([], _data(name + ".fasta"), MIN_OVERLAP, log=_quiet)
+        n = ds.number_of_unique_reads
+        for row_lo in (0, 1 + int(0.9 * n)):
+            p = dov.DeviceOverlapPipeline(ds, MIN_OVERLAP, row_lo=row_lo,
+                                          device=cuda)
+            lens = ("one length %d" % p.uniform_len if p.uniform_len >= 0
+                    else "mixed lengths")
+            for cc, dd in EMIT_MODES:
+                for ob in (p.off_bits, -1):
+                    emit_equal(torch, emit_args(p, cc, ob, p.uniform_len), dd,
+                               "emit_verify %s rows >= %d, %s, cont %d dedup "
+                               "%d, %s" % (name, row_lo, lens, cc, dd,
+                                           "words" if ob >= 0
+                                           else "(r2, meta)"))
+                    calls += 1
+    p = dov.DeviceOverlapPipeline(ds, MIN_OVERLAP, device=cuda)
+    cap = p._plan_chunks()[0]
+    emit_equal(torch, emit_args(p, True, p.off_bits, -1, cap=4 * cap), True,
+               "emit_verify se_mixlen, cap %d, 4x the plan's" % (4 * cap))
+    calls += 1
+    ds = Dataset([], _data("se_small.fasta"), MIN_OVERLAP, log=_quiet)
+    old = dov.DeviceOverlapPipeline.MAX_CAP
+    try:
+        dov.DeviceOverlapPipeline.MAX_CAP = 1 << 14
+        p = dov.DeviceOverlapPipeline(ds, MIN_OVERLAP, device=cuda)
+        chunks = p._plan_chunks()[2]
+        if len(chunks) < 2:
+            raise SystemExit("se_small's plan at MAX_CAP 2^14 has one chunk")
+        for i in range(1, len(chunks)):
+            for cc, dd in EMIT_MODES:
+                emit_equal(torch, emit_args(p, cc, p.off_bits, p.uniform_len,
+                                            chunk=i), dd,
+                           "emit_verify se_small chunk %d of %d (h0 %d), cont "
+                           "%d dedup %d" % (i, len(chunks), chunks[i][0], cc,
+                                            dd))
+                calls += 1
+    finally:
+        dov.DeviceOverlapPipeline.MAX_CAP = old
+    args = emit_args(p, True, p.off_bits, -1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        emit_verify.emit2_cuda(*args, dedup=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    calls += 1
+    log("  emit_verify under set_sync_debug_mode(\"error\"): no "
+        "synchronising operation")
+    if emit_verify.launches != calls:
+        raise SystemExit("emit_verify launched %d times for %d calls"
+                         % (emit_verify.launches, calls))
+    log("  emit_verify launches: %d, one a call" % calls)
+
+
+def emit_cells(torch, tmp, card):
+    """emit_verify at the benchmark cells' shapes: each cell's sample (seed
+    CELL_SEED) as its construction loads it, the hybrid's device shard
+    (rows above nine tenths) and mode; the kernel bit-equal to the plain
+    _emit2, both timed in turns on the card alone (device_turns) beside
+    the bound (bench.stage_bytes' least bytes at the data sheet's rate),
+    and the share of slots
+    whose rows the kernel compares (from tests/emit_model.py, a numpy
+    model of the kernel, on the host).  Returns one record a cell."""
+    import emit_model
+    from omegabench import generator, layout
+    from metagenomics_tpu_torch import bench
+    from metagenomics_tpu_torch.dataset import Dataset
+    from metagenomics_tpu_torch.ops import device_overlap as dov
+    cuda = torch.device("cuda", 0)
+    spec = layout.benchmark(REPO)
+    out = []
+    for w in spec["workloads"]:
+        cell = layout.Cell(w["name"], spec)
+        cdir = os.path.join(tmp, "cell_" + w["name"])
+        os.makedirs(cdir)
+        t0 = time.time()
+        paths, _ = generator.write_sample(cell.config, cell.traffic,
+                                          CELL_SEED, cdir)
+        ds = Dataset(paths, [], cell.config["min_overlap"], log=_quiet)
+        n = ds.number_of_unique_reads
+        row_lo = max(1, min(n + 1, 1 + int(n * 0.9)))
+        p = dov.DeviceOverlapPipeline(ds, cell.config["min_overlap"],
+                                      row_lo=row_lo, device=cuda)
+        cc = p.uniform_len < 0
+        cap, _, chunks = p._plan_chunks()
+        if len(chunks) != 1:
+            raise SystemExit("%s plans %d chunks" % (w["name"], len(chunks)))
+        args = emit_args(p, cc, p.off_bits, p.uniform_len)
+        label = ("%s: %d unique reads, rows >= %d, %d hits, %d candidates, "
+                 "cap %d, w %d" % (w["name"], n, row_lo, p.h_total, p.grand,
+                                   cap, p.w))
+        nk = emit_equal(torch, args, True, label)
+        ms = device_turns(torch, {
+            "plain": lambda: dov._emit2_torch(*args, dedup=True),
+            "kernel": lambda: dov._emit2(*args, dedup=True)}, 5)
+        host = [a.cpu().numpy() if hasattr(a, "cpu") else a
+                for a in args[:6]]
+        _, _, mnk, compared = emit_model.emit2(
+            *host, *args[6:10], cap, *args[12:], True)
+        if mnk != nk:
+            raise SystemExit("the model kept %d at %s, the kernel %d"
+                             % (mnk, w["name"], nk))
+        nbytes = bench.stage_bytes(p, nk)["emit_verify"]
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"cell": w["name"], "unique_reads": n, "row_lo": row_lo,
+               "h_total": p.h_total, "candidates": p.grand, "cap": cap,
+               "survivors": nk, "compared": compared,
+               "compared_pct": 100 * compared / max(p.grand, 1),
+               "ms": ms["kernel"], "plain_ms": ms["plain"],
+               "bound_ms": bound_ms, "bytes": nbytes}
+        log("    [%s] kernel %.6f ms, plain %.6f ms, bound %.6f ms (%d "
+            "bytes), kernel at %.3f%% of the bound; rows compared in %d of "
+            "%d candidate slots (%.2f%%); %.1f s" % (
+                card, ms["kernel"], ms["plain"], bound_ms, nbytes,
+                100 * bound_ms / ms["kernel"], compared, p.grand,
+                rec["compared_pct"], time.time() - t0))
+        out.append(rec)
+        del p, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def hash_bound(n, lmax, l):
@@ -404,8 +602,10 @@ def diff_artifacts(dir_a, prefix_a, dir_b, prefix_b):
 
 
 def reset_counts(window_hash):
+    from metagenomics_tpu_torch.ops import emit_verify
     window_hash.launches = 0
     window_hash.at_launches = 0
+    emit_verify.launches = 0
 
 
 def read_counts(window_hash):
@@ -507,6 +707,28 @@ def time_turns(torch, fns, reps=10):
     return {k: v / (2 * reps) for k, v in total.items()}
 
 
+def device_turns(torch, fns, reps=20):
+    """Mean device ms per call of each no-argument fn, in turns as
+    time_turns, each batch queued behind a 0.1 s sleep kernel so that
+    the events time the card alone, not the host's launches."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    names = list(fns)
+    total = dict.fromkeys(names, 0.0)
+    for name in names + names[::-1]:
+        torch.cuda._sleep(100_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fns[name]()
+        stop.record()
+        torch.cuda.synchronize()
+        total[name] += start.elapsed_time(stop)
+    return {k: v / (2 * reps) for k, v in total.items()}
+
+
 def engine_run(torch, window_hash, args, workdir, engine, card, mesh=None):
     """One CLI run on cuda with the launch counters and the peak device
     memory reset just before it and read just after; prints its phase
@@ -517,11 +739,16 @@ def engine_run(torch, window_hash, args, workdir, engine, card, mesh=None):
     asm, _ = run_cli(args, workdir, engine, mesh)
     torch.cuda.synchronize()
     counts = read_counts(window_hash)
+    from metagenomics_tpu_torch.ops import emit_verify
+    emits = emit_verify.launches
     peak = torch.cuda.max_memory_allocated()
-    log("  %s engine (ran %s) [%s]: %d unique reads, launches %s, peak "
-        "device memory %d bytes"
+    log("  %s engine (ran %s) [%s]: %d unique reads, launches %s, "
+        "emit_verify %d, peak device memory %d bytes"
         % (engine, asm.engine, card, asm.dataset.number_of_unique_reads,
-           counts, peak))
+           counts, emits, peak))
+    if asm.engine in ("device", "hybrid") and emits < 1:
+        raise SystemExit("the %s run did not launch emit_verify"
+                         % asm.engine)
     for k, v in asm.timings.items():
         log("    %-32s %.6f s" % (k, v))
     want = shards(mesh) if asm.engine == "sharded" else 1
@@ -1015,6 +1242,7 @@ def main():
     setup(torch, window_hash)
     err = kernel_check(torch, window_hash, rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cells = emit_cells(torch, tmp, card)
         golden_phase(window_hash, tmp)
         records, by_path = real_size_phase(torch, window_hash, tmp, card)
         by_path["sharded"] = sharded_phase(torch, window_hash, tmp, card)
@@ -1039,6 +1267,12 @@ def main():
             # no single PyTorch call computes a window hash
             "library_ms": None, "paths": sorted(by_path),
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+    kernels.append({
+        "name": "emit_verify", "route": "cuda",
+        "source": "metagenomics_tpu_torch/csrc/emit_verify.cu",
+        "replaces": None, "replaces_ops":
+            "metagenomics_tpu/ops/device_overlap.py:445 (_emit2, XLA ops)",
+        "max_abs_err": 0, "cells": cells})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Port of metagenomics_tpu/ops/device_overlap.py (the design notes there hold
 here too).  Every stage is a plain function on tensors that live on one
 explicit torch.device; the pipeline class carries that device.  On a CUDA
-device the window hashes come from the hand-written kernel
-(ops/window_hash.py, csrc/window_hash.cu); every other stage is torch ops.
+device the window hashes come from the hand-written kernels
+(ops/window_hash.py, csrc/window_hash.cu) and _emit2 from another
+(ops/emit_verify.py, csrc/emit_verify.cu); every other stage is torch ops.
 
 Where torch differs from JAX, the port holds the reference's semantics:
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.timing import count, span, traced
+from . import emit_verify
 from .window_hash import MASK32, window_hashes, window_hashes_at
 
 PAD_HASH = 0xFFFFFFFF
@@ -343,6 +345,21 @@ def _row_stats(rk, rcnt, h_total, n1, npos):
 def _emit2(packed2, lengths, rk_pad, rleft_pad, rcnt_pad, sid, h0, nh_real,
            row0, hash_len, nqt, cap, npos, w, qw_max, check_cont, off_bits,
            uniform_len, dedup=False):
+    """Expand + verify + order one chunk of hit queries [h0, h0+nh_real):
+    the hand-written kernel for CUDA tensors (ops/emit_verify.py), which
+    leaves the buffer past n_keep unspecified, and the plain version,
+    _emit2_torch, for CPU tensors.  Arguments and return as
+    _emit2_torch's."""
+    fn = (emit_verify.emit2_cuda if packed2.device.type == "cuda"
+          else _emit2_torch)
+    return fn(packed2, lengths, rk_pad, rleft_pad, rcnt_pad, sid, h0,
+              nh_real, row0, hash_len, nqt, cap, npos, w, qw_max,
+              check_cont, off_bits, uniform_len, dedup=dedup)
+
+
+def _emit2_torch(packed2, lengths, rk_pad, rleft_pad, rcnt_pad, sid, h0,
+                 nh_real, row0, hash_len, nqt, cap, npos, w, qw_max,
+                 check_cont, off_bits, uniform_len, dedup=False):
     """Expand + verify + order one chunk of hit queries [h0, h0+nh_real).
 
     nqt is the tier size of the slice; counts beyond nh_real are zeroed so

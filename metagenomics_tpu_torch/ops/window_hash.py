@@ -144,26 +144,27 @@ def _find_nvcc():
                        "built (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_library():
-    """Compile csrc/window_hash.cu (once per source and flag set) and
-    return the path of the shared library.  Raises on a missing nvcc or
-    a failed build."""
-    with open(SOURCE, "rb") as f:
+def build_library(source=SOURCE):
+    """Compile a kernel source of csrc/ (window_hash.cu unless given;
+    once per source and flag set) and return the path of the shared
+    library.  Raises on a missing nvcc or a failed build."""
+    with open(source, "rb") as f:
         src = f.read()
+    name = os.path.splitext(os.path.basename(source))[0]
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out_dir = os.path.join(BUILD_ROOT, "window_hash-" + key[:16])
-    so = os.path.join(out_dir, "libwindow_hash.so")
+    out_dir = os.path.join(BUILD_ROOT, "%s-%s" % (name, key[:16]))
+    so = os.path.join(out_dir, "lib%s.so" % name)
     if os.path.exists(so):
         return so
     nvcc = _find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
     with span("kernel.build", library=so):
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s%s"
-                           % (SOURCE, proc.stdout, proc.stderr))
+                           % (source, proc.stdout, proc.stderr))
     with open(os.path.join(out_dir, "build.log"), "w") as f:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, so)
