@@ -56,16 +56,8 @@ Phases (any failure exits non-zero; nothing is caught):
      pe_hard in a subprocess that joins an NCCL group of one rank
      (MGTPU_COORDINATOR / MGTPU_NUM_PROCESSES / MGTPU_PROCESS_ID), equal
      to golden.  Shards that share one card say nothing about scaling;
-  6. measurement: entry() (metagenomics_tpu_torch/entry.py) on cuda equals
-     the same call on the CPU, element for element; on the bench's 200k-read
-     set (metagenomics_tpu_torch/bench.py), stream(download=False) returns
-     None and launches each kernel once; the bench's staged device path
-     (its stage table) gives survivor words and counts equal to
-     stream_canon(False); one run_once, one run_device_only and one hybrid
-     run complete and print their times with the card label; the bench's
-     kernel check passes; then the stage table (each device stage's time
-     beside its least bytes and the card's measured copy bandwidth) on
-     phase 4's 1M reads, best of 3;
+  6. entry(): entry() (metagenomics_tpu_torch/entry.py) on cuda equals
+     the same call on the CPU, element for element;
   7. fuzz and scale: the port's fuzzer (measure/pipefuzz.py) in this
      process on seeds 7, 9 and 20 (random repeat-heavy sets of mixed read
      lengths) in each mode (se, pe, mix: a -pe and a -se file) under the
@@ -87,15 +79,14 @@ Each kernel's launch counter is set to 0 just before each run of the CLI
 and read just after it; a device or hybrid run (one that did not fall
 back) that did not launch each kernel fails the smoke, and a se_1m device
 or hybrid run must launch each exactly once, a sharded run exactly once a
-shard (dp * ix; the dry run's sweep is checked in total), and phase 6's
-bench path (stage table, run_once, device-only and hybrid runs) exactly
-four times, and phase 7's fuzz runs once each a device or hybrid run and
-once a shard a sharded run.  emit_verify's count is printed beside them
-(one a chunk); each device or hybrid run of phase 4 must launch it.  The
-main path is phase 4's `auto` (hybrid) run.  The smoke fails if jax or
-any module of the JAX package (metagenomics_tpu) was imported.  The last
-two lines are the kernels record and {"ok": true, "device": ...}.  Exits
-non-zero without a result when no CUDA device is available.
+shard (dp * ix; the dry run's sweep is checked in total), and phase 7's
+fuzz runs once each a device or hybrid run and once a shard a sharded
+run.  emit_verify's count is printed beside them (one a chunk); each
+device or hybrid run of phase 4 must launch it.  The main path is phase
+4's `auto` (hybrid) run.  The smoke fails if jax or any module of the
+JAX package (metagenomics_tpu) was imported.  The last two lines are the
+kernels record and {"ok": true, "device": ...}.  Exits non-zero without
+a result when no CUDA device is available.
 """
 
 import contextlib
@@ -141,10 +132,9 @@ KERNEL_SHAPES = [(3, 50, 11), (300, 100, 39), (64, 130, 64),
 # the kernels of the port's main path, each with its own launch counter
 KERNELS = ("window_hash", "window_hash_at")
 
-# _emit2's modes (check_cont, dedup): stream(check_cont=False) (the
-# bench's device-only path); stream() and stream_canon(True); the hybrid's
-# canonical stream (one length); the hybrid's canonical stream with every
-# containment hit (mixed lengths)
+# _emit2's modes (check_cont, dedup): stream(check_cont=False); stream()
+# and stream_canon(True); the hybrid's canonical stream (one length); the
+# hybrid's canonical stream with every containment hit (mixed lengths)
 EMIT_MODES = [(False, False), (True, False), (False, True), (True, True)]
 
 # the benchmark's samples for the emit_verify check at the cells' shapes
@@ -465,13 +455,12 @@ def emit_cells(torch, tmp, card):
     CELL_SEED) as its construction loads it, the hybrid's device shard
     (rows above nine tenths) and mode; the kernel bit-equal to the plain
     _emit2, both timed in turns on the card alone (device_turns) beside
-    the bound (bench.stage_bytes' least bytes at the data sheet's rate),
-    and the share of slots
-    whose rows the kernel compares (from tests/emit_model.py, a numpy
-    model of the kernel, on the host).  Returns one record a cell."""
+    the bound (omegabench.stages.stage_bytes' least bytes at the data
+    sheet's rate), and the share of slots whose rows the kernel compares
+    (from tests/emit_model.py, a numpy model of the kernel, on the host).
+    Returns one record a cell."""
     import emit_model
-    from omegabench import generator, layout
-    from metagenomics_tpu_torch import bench
+    from omegabench import generator, layout, stages
     from metagenomics_tpu_torch.dataset import Dataset
     from metagenomics_tpu_torch.ops import device_overlap as dov
     cuda = torch.device("cuda", 0)
@@ -508,7 +497,10 @@ def emit_cells(torch, tmp, card):
         if mnk != nk:
             raise SystemExit("the model kept %d at %s, the kernel %d"
                              % (mnk, w["name"], nk))
-        nbytes = bench.stage_bytes(p, nk)["emit_verify"]
+        nbytes = stages.stage_bytes({
+            "n1": int(p.hf.shape[0]), "row0": p.row0, "w": p.w,
+            "npos": p.npos, "h_total": p.h_total,
+            "survivors": nk})["emit_verify"]
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rec = {"cell": w["name"], "unique_reads": n, "row_lo": row_lo,
                "h_total": p.h_total, "candidates": p.grand, "cap": cap,
@@ -1008,99 +1000,19 @@ def sharded_phase(torch, window_hash, tmp, card):
     return launches
 
 
-def log_stage_table(table, label):
-    log("  stage table, %s:" % label)
-    for name, rec in table["phases"].items():
-        where = ("host" if "on" in rec else
-                 "%d bytes, %.2f%% of copy bandwidth, %.2f%% of the data "
-                 "sheet" % (rec["min_bytes"], rec["pct_copy_bw"],
-                            rec["pct_hbm_datasheet"]))
-        log("    %-12s %12.6f ms  %s" % (name, rec["ms"], where))
-    emit = table["phases"]["emit_verify"]
-    log("    emit_verify: %d chunk(s) of %d slots, %d candidates, %d "
-        "survivors" % (emit["chunks"], emit["cap"], emit["candidates"],
-                       emit["survivors"]))
-    log("    probe_join: %.1f%% of the device stages' %.6f ms"
-        % (100 * table["probe_join_share_of_device_stages"],
-           table["device_stages_ms"]))
-
-
-def measurement_phase(torch, window_hash, tmp, card):
-    """Phase 6; returns the bench path's launches by kernel."""
-    import numpy as np
-    from metagenomics_tpu_torch import bench
+def entry_phase(torch):
+    """Phase 6: entry() on cuda equals the same call on the CPU."""
     from metagenomics_tpu_torch.entry import entry
-    from metagenomics_tpu_torch.ops.device_overlap import (
-        DeviceOverlapPipeline)
-    log("== phase 6: measurement (entry() and the bench's device path)")
-    t_phase = time.time()
-    cuda = torch.device("cuda", 0)
-    fn, args = entry(cuda)
+    log("== phase 6: entry() on cuda vs the CPU")
+    fn, args = entry(torch.device("cuda", 0))
     got = fn(*args).cpu()
     fn, args = entry("cpu")
     want = fn(*args)
-    log("  entry() on cuda vs the CPU: %d of %d pairs verified on both, %s"
+    log("  %d of %d pairs verified on both, %s"
         % (int(got.sum()), got.numel(),
            "equal" if torch.equal(got, want) else "DIFFERENT"))
     if not torch.equal(got, want):
         raise SystemExit("entry() on cuda differs from the CPU call")
-
-    t0 = time.time()
-    bench.gen_bench_data()
-    ds, cfg = bench.load_dataset()
-    log("  bench set: %d unique reads, made and loaded in %.3f s"
-        % (ds.number_of_unique_reads, time.time() - t0))
-
-    reset_counts(window_hash)
-    p = DeviceOverlapPipeline(ds, MIN_OVERLAP, device=cuda)
-    res = p.stream(check_cont=False, download=False)
-    torch.cuda.synchronize()
-    counts = read_counts(window_hash)
-    log("  pipeline + stream(download=False): returned %r, launches %s"
-        % (res, counts))
-    if res is not None or counts != dict.fromkeys(KERNELS, 1):
-        raise SystemExit("stream(download=False) returned %r with launches "
-                         "%s" % (res, counts))
-
-    # the bench path: its stage table, one end-to-end device run, one
-    # device-only run and one hybrid run, one launch of each kernel each
-    rates = bench.link_rates(cuda)
-    reset_counts(window_hash)
-    table, kc, words = bench.stage_table(ds, cfg, cuda, rates, k=1)
-    staged = read_counts(window_hash)
-    once = bench.run_once(ds, cfg, cuda)
-    dev_s = bench.run_device_only(ds, cuda)
-    hy_s, split = bench.run_hybrid(ds, cfg, cuda)
-    launches = read_counts(window_hash)
-    kc2, words2, _, _ = p.stream_canon(check_cont=False)
-    same = np.array_equal(kc, kc2) and np.array_equal(words, words2)
-    log("  [%s] stage table's words (%d) and counts %s stream_canon(False)'s;"
-        " copy bandwidth %.3f GB/s (data sheet %.0f GB/s)"
-        % (card, len(words), "equal" if same else "DIFFERENT from",
-           rates["d2d_copy_GBps"], rates["hbm_datasheet_GBps"]))
-    log_stage_table(table, "bench set, one call each")
-    log("  [%s] run_once %.6f s (index %.6f, stream %.6f, replay %.6f), "
-        "device-only %.6f s, hybrid %.6f s (%s)"
-        % (card, once["total"], once["index"], once["stream"], once["build"],
-           dev_s, hy_s, split))
-    log("  launches: stage table %s, bench path %s" % (staged, launches))
-    if not same:
-        raise SystemExit("the stage table's stream differs from "
-                         "stream_canon(False)")
-    if staged != dict.fromkeys(KERNELS, 1) or \
-            launches != dict.fromkeys(KERNELS, 4):
-        raise SystemExit("the bench path launched %s (stage table %s), not "
-                         "each kernel 4 times" % (launches, staged))
-    check = bench.kernel_check(ds, cuda)
-    log("  kernel check on the bench set: %s" % check)
-
-    # the stage table at se_1m (phase 4's reads), best of 3
-    ds, cfg = bench.load_dataset(os.path.join(tmp, "reads_1m.fasta"))
-    table, _, _ = bench.stage_table(ds, cfg, cuda, rates, k=3)
-    log_stage_table(table, "se_1m (%d unique reads), best of 3 [%s]"
-                    % (ds.number_of_unique_reads, card))
-    log("  phase 6 took %.3f s" % (time.time() - t_phase))
-    return launches
 
 
 def fuzz_phase(torch, window_hash, card):
@@ -1246,7 +1158,7 @@ def main():
         golden_phase(window_hash, tmp)
         records, by_path = real_size_phase(torch, window_hash, tmp, card)
         by_path["sharded"] = sharded_phase(torch, window_hash, tmp, card)
-        by_path["bench"] = measurement_phase(torch, window_hash, tmp, card)
+        entry_phase(torch)
         by_path["fuzz"] = fuzz_phase(torch, window_hash, card)
         recorder_phase(torch, tmp)
     leaked = sorted(m for m in sys.modules

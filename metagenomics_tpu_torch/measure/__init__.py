@@ -1,6 +1,7 @@
-"""Measurement tools of the port on CUDA cards (the counterparts of the
-repo's tools/profile_device.py, measure_engines_1m.py,
-measure_sharded_scale.py and measure_scaling.py).  Each runs as
-`python -m metagenomics_tpu_torch.measure.<name>` from the repo root,
-prints its results with the card's name and power limit, writes no result
-file, and refuses to run without a card."""
+"""Tools of the port beside its benchmark (omegabench/): scale.py, the
+real-size run of the full CLI per engine against native (the counterpart
+of the repo's tools/measure_scale.py), and pipefuzz.py, the full-pipeline
+fuzzer (tools/pipefuzz.py's).  Each runs as
+`python -m metagenomics_tpu_torch.measure.<name>` from the repo root, on
+the card or with MGTPU_TORCH_DEVICE=cpu on the CPU, prints its results
+and writes no result file."""

@@ -8,10 +8,11 @@ of the full CLI on the 10M-read set, each engine against the native one
 The data set is tools/measure_scale.gen_data(N)'s, byte for byte (seed 11,
 a 5N-base genome, 100 bp reads on random strands), written to
 bench_data/scale_se.fasta unless that file's first line is already
-`>r0_<N>`.  Each engine runs the port's CLI (`-se 1 <data> -f t_ -l 40`) in
-a child process of its own under MGTPU_OVERLAP_ENGINE, and each run
-records its wall seconds, its phase times, its peak RSS (VmHWM polled, or
-VmRSS where /proc has no VmHWM), the child's own
+`>r0_<N>`; write_first_reads also writes the first n reads of a larger
+set without the rest.  Each engine runs the port's CLI (`-se 1 <data>
+-f t_ -l 40`) in a child process of its own under MGTPU_OVERLAP_ENGINE,
+and each run records its wall seconds, its phase times, its peak RSS
+(VmHWM polled, or VmRSS where /proc has no VmHWM), the child's own
 torch.cuda.max_memory_allocated() and max_memory_reserved() per card, the
 engine that ran, its rc and, on a failure, the last line of its stderr
 (an out-of-memory error, say).  `auto` is hybrid on one card, which runs
@@ -36,16 +37,58 @@ import sys
 import tempfile
 import time
 
-from .. import bench
-from . import engines_1m
+import numpy as np
 
-DATA = os.path.join(bench.DATA_DIR, "scale_se.fasta")
-REF = bench.REF_BINARY
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DATA_DIR = os.path.join(REPO, "bench_data")
+DATA = os.path.join(DATA_DIR, "scale_se.fasta")
+REF = os.path.join(REPO, "golden", "metagenomics_ref_O0")
 ARTS = ["contigs1.fasta", "contigs2.fasta", "contigs3.fasta",
         "contigs4.fasta", ".unitig", "_sortedReads.fasta", "_flow.output"]
 N_READS = 10_000_000
 CHILD_TAG = "SCALE_CHILD "
 CHILD_TIMEOUT_S = 7200
+# tools/measure_scale.gen_data's parameters
+SEED = 11
+READ_LEN = 100
+BLOCK = 1 << 18
+
+
+def card_label():
+    """`nvidia-smi --query-gpu=name,power.limit` of the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def write_first_reads(path, n_total, n):
+    """The first n reads of tools/measure_scale.gen_data(n_total), byte
+    for byte.  gen_data draws the genome and all n_total starts first,
+    then one flip vector per BLOCK reads, so n reads need only the first
+    ceil(n / BLOCK) blocks' flips."""
+    rng = np.random.default_rng(SEED)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, np.uint8)
+    for k, v in zip(b"ACGT", b"TGCA"):
+        comp[k] = v
+    glen = n_total * 5
+    genome = bases[rng.integers(0, 4, glen)]
+    starts = rng.integers(0, glen - READ_LEN + 1, n_total)
+    tmp = "%s.%d.tmp" % (path, os.getpid())
+    with open(tmp, "wb") as f:
+        for s in range(0, n, BLOCK):
+            flip = rng.random(min(s + BLOCK, n_total) - s) < 0.5
+            e = min(s + BLOCK, n)
+            block = genome[starts[s:e, None] + np.arange(READ_LEN)[None, :]]
+            block = np.where(flip[:e - s, None], comp[block[:, ::-1]], block)
+            f.write(b"".join(
+                (b">r%d_%d\n" % (s + t, n_total) if s + t == 0
+                 else b">r%d\n" % (s + t)) + block[t].tobytes() + b"\n"
+                for t in range(e - s)))
+    os.replace(tmp, path)
 
 
 def gen_data(n_reads):
@@ -56,7 +99,7 @@ def gen_data(n_reads):
             if f.readline() == ">r0_%d\n" % n_reads:
                 return
     os.makedirs(os.path.dirname(DATA), exist_ok=True)
-    engines_1m.write_first_reads(DATA, n_total=n_reads, n=n_reads)
+    write_first_reads(DATA, n_total=n_reads, n=n_reads)
 
 
 def _rss_kb(pid):
@@ -112,7 +155,7 @@ def run_engine(engine, workdir, device):
     os.makedirs(workdir)
     env = dict(os.environ, MGTPU_OVERLAP_ENGINE=engine,
                MGTPU_TORCH_DEVICE=str(device))
-    env["PYTHONPATH"] = bench.REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     rc, wall, rss = run_timed(
         [sys.executable, "-m", "metagenomics_tpu_torch.measure.scale",
          "--child", "-se", "1", DATA, "-f", "t_", "-l", "40"],
@@ -178,7 +221,7 @@ def measure(n_reads, engines, skip_reference, log):
     gen_data(n_reads)
     log("data: %d reads in %s (%.1f s)" % (n_reads, DATA, time.time() - t0))
     result = {"tool": "scale", "n_reads": n_reads, "device": str(device),
-              "card": bench.card_label() if cards else None, "cards": cards,
+              "card": card_label() if cards else None, "cards": cards,
               "engines": {}, "reference_O0": None}
     with tempfile.TemporaryDirectory(dir=os.path.dirname(DATA),
                                      prefix="scale_runs_") as td:

@@ -660,10 +660,11 @@ class DeviceOverlapPipeline:
                                                   device=dev)])))
         return self._pad_cache[1]
 
-    def _emit_chunks(self, check_cont, dedup, download=True):
-        """Run _emit2 over every chunk; returns ([(out, n_keep int)],
-        per-read survivor counts as int64 numpy).  download=False reads
-        back only the n_keep scalars and leaves the counts on the device."""
+    def _emit_chunks(self, check_cont, dedup, step=None):
+        """Run _emit2 over every chunk of the plan, each inside its
+        overlap.emit span, and then step(out, kc, n_keep) there where one
+        is given (it returns the same triple); returns ([(out, n_keep
+        int)], per-read survivor counts as int64 numpy)."""
         cap, nqt, chunks = self._plan_chunks()
         rk_pad, rleft_pad, rcnt_pad = self._padded(nqt)
         outs = []
@@ -675,26 +676,19 @@ class DeviceOverlapPipeline:
                     self.sid, h0, nh, self.row0, self.hash_len, nqt, cap,
                     self.npos, self.w, self.qw_max, check_cont,
                     self.off_bits, self.uniform_len, dedup=dedup)
+                if step is not None:
+                    out, kc, n_keep = step(out, kc, n_keep)
             outs.append((out, n_keep))
             kc_total = kc if kc_total is None else kc_total + kc
         outs = [(out, int(nk)) for out, nk in outs]
         count("device.syncs", len(outs))
-        if not download:
-            return outs, kc_total
         return outs, _fetch(kc_total).astype(np.int64)
 
     @traced("overlap.stream")
-    def stream(self, check_cont=True, download=True):
+    def stream(self, check_cont=True):
         """Survivor stream in reference discovery order (read asc, j asc,
-        bucket order): (counts [n+1] int64, r2 int32, meta uint16).
-
-        download=False runs every chunk's _emit2 but reads back only the
-        n_keep scalars, neither the survivors nor the per-read counts, and
-        returns None: the device-compute-only mode of the bench."""
-        outs, keep_counts = self._emit_chunks(check_cont, dedup=False,
-                                              download=download)
-        if not download:
-            return None
+        bucket order): (counts [n+1] int64, r2 int32, meta uint16)."""
+        outs, keep_counts = self._emit_chunks(check_cont, dedup=False)
         if self.off_bits >= 0:
             r2, meta = self._unpack_words(_fetch_words(outs))
         else:
@@ -733,28 +727,21 @@ class DeviceOverlapPipeline:
         if not check_cont:
             outs, counts = self._emit_chunks(False, dedup=True)
             return counts, _fetch_words(outs), None, None
-        n1 = self.hf.shape[0]
-        cap, nqt, chunks = self._plan_chunks()
-        if len(chunks) > 1:
+        if len(self._plan_chunks()[2]) > 1:
             return None                       # containment is global; the
                                               # full-stream path handles it
-        rk_pad, rleft_pad, rcnt_pad = self._padded(nqt)
-        h0, nh = chunks[0]
-        with span("overlap.emit", chunk=0, cap=cap):
-            out, kc, n_keep = _emit2(
-                self.packed2, self.lengths, rk_pad, rleft_pad, rcnt_pad,
-                self.sid, h0, nh, self.row0, self.hash_len, nqt, cap,
-                self.npos, self.w, self.qw_max, True, self.off_bits,
-                self.uniform_len)
+        n1 = self.hf.shape[0]
+        held = []
+
+        def resolve(out, kc, n_keep):
             words2, counts2, n_keep2, sup, fh = _cont_canon(
                 out, kc, n_keep, self.lengths, n1, self.off_bits)
-        n_keep2 = int(n_keep2)
-        count("device.syncs")
-        packed = _fetch_words([(words2, n_keep2)])
-        counts = _fetch(counts2).astype(np.int64)
-        supers = _fetch(sup).astype(np.int64)
-        firsthit = _fetch(fh)
-        return counts, packed, supers, firsthit
+            held.extend((sup, fh))
+            return words2, counts2, n_keep2
+        outs, counts = self._emit_chunks(True, dedup=False, step=resolve)
+        supers, firsthit = held
+        return (counts, _fetch_words(outs), _fetch(supers).astype(np.int64),
+                _fetch(firsthit))
 
     @traced("overlap.stream")
     def stream_canon_raw_mixed(self):

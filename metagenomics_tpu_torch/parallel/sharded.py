@@ -600,11 +600,10 @@ class ShardedOverlapPipeline:
         np.add.at(ccounts, r1[keep], 1)
         return ccounts, pack(r2[keep], meta[keep]), supers, firsthit
 
-    def stream(self, check_cont=True, download=True, dedup=False):
+    def stream(self, check_cont=True, dedup=False):
         """Survivor stream in reference discovery order: (counts [n1] int64,
         r2 int32, meta uint16) -- the DeviceOverlapPipeline.stream
-        contract.  download=False runs every chunk's emit but reads back
-        only the n_keep counts, and returns None."""
+        contract."""
         D = self.dp
         n1, nloc = self.n1, self.nloc
 
@@ -663,8 +662,6 @@ class ShardedOverlapPipeline:
         n_keeps = []
         for *_, nk in outs:
             n_keeps.append([int(r[0]) for r in self._rows(nk, D)])
-        if not download:
-            return None
 
         r2_parts, m_parts = [], []
         fetched = []

@@ -4,7 +4,9 @@ package's and the native engine, and the port's `auto` rule.
 Hybrid: across split fractions and dataset shapes, the .unitig bytes and
 the contained-read marks (super_read_id) equal the native engine's and the
 JAX hybrid engine's, and every case proves that the hybrid path ran (the
-CPU scan returned a shard and the device pipeline probed from row a > 1).
+CPU scan returned a shard and the device pipeline probed from row a > 1),
+and the split it ran (rows on each side, threads) is the one
+MGTPU_HYBRID_CPU_FRAC asks for, 0.9 by default.
 Trimmed 2x300 bp reads (omegabench's cami-low-miseq300 bins over a tiny
 community): 9-bit packed words and containment at 41-300 bp, the hybrid
 against the native engines of both packages and the JAX hybrid, its super
@@ -327,3 +329,46 @@ def test_hybrid_falls_back_below_1024_reads(tmp_path, native_lib, torch_cpu,
     assert unitig == _engine_run(monkeypatch, "native", se)[1]
     engine, _ = _engine_run(monkeypatch, "hybrid", _mkreads(tmp_path))
     assert engine == "hybrid"
+
+
+@pytest.mark.parametrize("frac", [None, "0.5", "0.25"])
+def test_hybrid_split_that_ran(frac, native_lib, torch_cpu, monkeypatch):
+    """build_hybrid on se_small scans int(n * frac) reads on the CPU (frac
+    0.9 unless MGTPU_HYBRID_CPU_FRAC is set) on one thread or more, and
+    the device pipeline probes the rest: the two shards hold every unique
+    read once."""
+    from metagenomics_tpu_torch.ops import device_overlap as tdo
+    scan = native_lib.scan_canon
+    seen = {"scans": [], "rows": []}
+
+    def spy(lengths, codes_fwd, codes_rev, hash_len, r_lo, r_hi, off_bits,
+            n_threads=1, mixed=False):
+        seen["scans"].append((r_lo, r_hi, n_threads))
+        return scan(lengths, codes_fwd, codes_rev, hash_len, r_lo, r_hi,
+                    off_bits, n_threads=n_threads, mixed=mixed)
+
+    class Pipeline(tdo.DeviceOverlapPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["rows"].append(self.row0)
+
+    with monkeypatch.context() as mp:
+        if frac is None:
+            mp.delenv("MGTPU_HYBRID_CPU_FRAC", raising=False)
+        else:
+            mp.setenv("MGTPU_HYBRID_CPU_FRAC", frac)
+        mp.setattr(native_lib, "scan_canon", spy)
+        mp.setattr(tdo, "DeviceOverlapPipeline", Pipeline)
+        ds, graph = _graph("torch", [],
+                           [os.path.join(GOLDEN, "se_small.fasta")], 40)
+        assert graph.build_hybrid(), "hybrid refused se_small"
+    assert native_lib.scan_canon is scan
+    assert tdo.DeviceOverlapPipeline is not Pipeline
+    (r_lo, r_hi, threads), = seen["scans"]
+    row0, = seen["rows"]
+    n = ds.number_of_unique_reads
+    cpu_rows, device_rows = r_hi - r_lo, n + 1 - row0
+    assert r_lo == 1 and row0 == r_hi
+    assert cpu_rows + device_rows == n
+    assert cpu_rows == int(n * float(frac or 0.9)) and device_rows > 0
+    assert threads >= 1

@@ -3,6 +3,9 @@ the CPU at a small size.
 
 * gen_data(n) writes tools/measure_scale.gen_data(n)'s bytes, across the
   2^18-read flip block, and keeps a file whose first line names n;
+  write_first_reads(path, n_total, n) writes its first n reads alone;
+* card_label is the first card's line of nvidia-smi's name and power
+  limit;
 * the tool runs each engine's CLI in a child process and prints one JSON
   object: rc 0, a peak RSS, the engine that ran and the artifacts equal
   to native's;
@@ -15,6 +18,7 @@ import importlib.util
 import io
 import json
 import os
+import subprocess
 
 import pytest
 import torch
@@ -65,6 +69,46 @@ def test_gen_data_keeps_a_file_of_its_size(tmp_path, monkeypatch):
     scale.gen_data(100)                  # >r0_1000 does not name 100 reads
     assert path.read_bytes().count(b"\n") == 200
     assert path.read_bytes().startswith(b">r0_100\n")
+
+
+@pytest.fixture(scope="module")
+def scale_lines(tmp_path_factory):
+    """tools/measure_scale.gen_data at 300,000 reads: two flip blocks and
+    part of a third."""
+    path = tmp_path_factory.mktemp("scale") / "scale_se.fasta"
+    old = measure_scale.DATA
+    measure_scale.DATA = str(path)
+    try:
+        measure_scale.gen_data(300_000)
+    finally:
+        measure_scale.DATA = old
+    return path.read_bytes().splitlines(keepends=True)
+
+
+@pytest.mark.parametrize("n", [1000, 262_144, 270_000])
+def test_first_reads_match_gen_data(tmp_path, scale_lines, n):
+    path = tmp_path / "first.fasta"
+    scale.write_first_reads(str(path), n_total=300_000, n=n)
+    assert path.read_bytes() == b"".join(scale_lines[:2 * n])
+
+
+def test_card_label_is_the_first_cards_line(tmp_path, monkeypatch):
+    """A stand-in nvidia-smi that answers only the query card_label
+    makes: its first line, stripped; a failing nvidia-smi raises."""
+    smi = tmp_path / "nvidia-smi"
+    smi.write_text(
+        '#!/bin/sh\n'
+        '[ "$*" = "--query-gpu=name,power.limit --format=csv,noheader" ] '
+        '|| exit 3\n'
+        'printf "  NVIDIA H100 80GB HBM3, 700.00 W \\n'
+        'NVIDIA H100 80GB HBM3, 650.00 W\\n"\n')
+    smi.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path) + os.pathsep
+                       + os.environ.get("PATH", ""))
+    assert scale.card_label() == "NVIDIA H100 80GB HBM3, 700.00 W"
+    smi.write_text("#!/bin/sh\nexit 9\n")
+    with pytest.raises(subprocess.CalledProcessError):
+        scale.card_label()
 
 
 # /proc/<pid>/status as a usual Linux host and as the card's host give it

@@ -1,9 +1,9 @@
 """The port's sharded engine (metagenomics_tpu_torch/parallel/) on in-process
 meshes of CPU shards against the JAX package's on conftest's 8 virtual
-devices: each stage's outputs in the global layout, the survivor streams
-(and stream(download=False)), the canonical stream, multi-chunk runs, the
-start-clamp regression, the collective ledger, the true-layout helpers and
-the collectives themselves.
+devices: each stage's outputs in the global layout, the survivor streams,
+the canonical stream, multi-chunk runs, the start-clamp regression, the
+collective ledger, the true-layout helpers and the collectives
+themselves.
 Every value is an integer: exact equality throughout (uint32 values
 compare as their int64 zero-extension, uint16 as int32)."""
 
@@ -152,28 +152,25 @@ def test_stream_matches_jax_and_single_device(name, dp, ix, check_cont):
     assert len(got[1]) > 0
 
 
-def test_stream_without_download_matches_jax():
-    """stream(download=False) at (4, 2) on se_small returns None, as the
-    JAX package's does, and charges the collective ledger what the JAX
-    run and the port's download run charge; the next stream() equals the
-    JAX package's.  Fresh pipelines: the JAX ledger records a collective
-    when its program is traced, which a cached pipeline has done."""
+def test_stream_ledger_matches_jax():
+    """stream() at (4, 2) on se_small charges the collective ledger what
+    the JAX package's stream() charges, with one emit phase, and its
+    stream equals the JAX package's.  Fresh pipelines: the JAX ledger
+    records a collective when its program is traced, which a cached
+    pipeline has done."""
     ds = _ds("se_small")
     jp = JSP(ds, 40, mesh=jmesh(dp=4, ix=2))
     tp = TSP(ds, 40, mesh=_cpu_mesh(4, 2))
 
-    def charged(ledger, pipe, **kw):
+    def charged(ledger, pipe):
         ledger.reset()
-        out = pipe.stream(**kw)
+        out = pipe.stream()
         return out, (dict(ledger.totals), dict(ledger.calls),
                      ledger.report()["phases"])
-    got, without = charged(tcoll.LEDGER, tp, download=False)
-    jgot, jwithout = charged(JLEDGER, jp, download=False)
-    assert got is None and jgot is None
-    assert without == jwithout and without[0]
-    stream, with_download = charged(tcoll.LEDGER, tp)
-    assert with_download == without and without[1]["emit"] == 1
-    for g, w, what in zip(stream, jp.stream(), ("counts", "r2", "meta")):
+    stream, got = charged(tcoll.LEDGER, tp)
+    jstream, want = charged(JLEDGER, jp)
+    assert got == want and got[0] and got[1]["emit"] == 1
+    for g, w, what in zip(stream, jstream, ("counts", "r2", "meta")):
         assert g.dtype == w.dtype, what
         np.testing.assert_array_equal(g, w, err_msg=what)
     assert len(stream[1]) > 0

@@ -265,6 +265,35 @@ def test_device_pipeline_spans_and_counts(rec, monkeypatch, datasets, data,
     assert _counts(rec, "device.syncs") == syncs
 
 
+@pytest.mark.parametrize("data,call", [(d, c) for d, c, _ in STREAMS])
+def test_multichunk_emit_spans_and_syncs(rec, monkeypatch, datasets, data,
+                                         call):
+    """A plan of several chunks: one overlap.emit span a chunk, numbered in
+    order, under the stream's span; read-backs: the probe's two, the row
+    statistics' two, one a chunk's survivor count, the counts, and one a
+    chunk's survivor words.  The containment stream refuses such a plan
+    after planning it, before any emission."""
+    from metagenomics_tpu_torch.ops.device_overlap import (
+        DeviceOverlapPipeline)
+    monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(DeviceOverlapPipeline, "MAX_CAP", 1 << 12)
+    pipeline = DeviceOverlapPipeline(datasets[data], 40)
+    if call == "stream_canon_true":
+        assert pipeline.stream_canon() is None
+        assert not _spans(rec, "overlap.emit")
+        assert not _spans(rec, "overlap.fetch")
+        assert _counts(rec, "device.syncs") == 4
+        return
+    records = _stream(pipeline, call)
+    stream, = _spans(rec, "overlap.stream")
+    emits = _spans(rec, "overlap.emit")
+    assert [e.attrs["chunk"] for e in emits] == list(range(len(emits)))
+    assert len(emits) > 1 and len({e.attrs["cap"] for e in emits}) == 1
+    assert all(e.parent == stream.id for e in emits)
+    assert _counts(rec, "overlap.survivors") == records > 0
+    assert _counts(rec, "device.syncs") == 2 + 2 + len(emits) + 1 + len(emits)
+
+
 def test_kernel_build_span(rec, monkeypatch, tmp_path):
     """window_hash.build_library records kernel.build when it compiles,
     and not when it finds the library built (a stand-in nvcc here)."""
