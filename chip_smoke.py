@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 Phases (any failure exits non-zero; nothing is caught):
   1. setup: card name and power limit, torch/CUDA/nvcc versions, and the
      build of the window-hash kernels (csrc/window_hash.cu: window_hash
-     and window_hash_at) and of the port's native library from the
-     sources;
+     and window_hash_at), of the setup_pack kernel (csrc/setup_pack.cu)
+     and of the port's native library from the sources;
   2. kernel check: each CUDA kernel is bit-equal to its plain PyTorch
      version (window_hashes_torch, window_hashes_at_torch) on the card at
      the reference's test shapes, a long-read shape and both l extremes,
@@ -23,11 +23,17 @@ Phases (any failure exits non-zero; nothing is caught):
      survivor layouts, at one length and mixed lengths, on all rows and
      on the hybrid's shard, on a later chunk of a multi-chunk plan and
      with spare slots past the total, and launches once under
-     torch.cuda.set_sync_debug_mode("error"); then at each benchmark
-     cell's shapes (its sample from omegabench/, the hybrid's shard and
-     mode), where both are timed in turns beside the bound and the share
-     of slots whose rows the kernel compares is printed (counted by the
-     numpy model tests/emit_model.py);
+     torch.cuda.set_sync_debug_mode("error"); the setup_pack kernel
+     (csrc/setup_pack.cu, _setup_kernel's row packing on the card) is
+     bit-equal to the plain _setup_pack_torch in its three outputs at
+     w 10 and 19 with lmax off and at a multiple of 16, at the 4096
+     length cap and at short rows, on packed reads of mixed lengths and on
+     arbitrary words, and launches once under the sync debug mode
+     "error"; then at each benchmark cell's shapes (its sample from
+     omegabench/, the hybrid's shard and mode), where emit_verify and
+     setup_pack are each timed in turns with their plain versions beside
+     their bounds, and the share of slots whose rows emit_verify compares
+     is printed (counted by the numpy model tests/emit_model.py);
   3. golden configs: the port's CLI on cuda with the device, hybrid and
      host engines writes all 12 artifacts byte-equal to golden/out/<cfg>/
      (and the normalized log equal to the reference log) for the nine
@@ -82,7 +88,8 @@ or hybrid run must launch each exactly once, a sharded run exactly once a
 shard (dp * ix; the dry run's sweep is checked in total), and phase 7's
 fuzz runs once each a device or hybrid run and once a shard a sharded
 run.  emit_verify's count is printed beside them (one a chunk); each
-device or hybrid run of phase 4 must launch it.  The main path is phase
+device or hybrid run of phase 4 must launch it, and launch setup_pack
+exactly once (the sharded run never: its shards pack their own rows).  The main path is phase
 4's `auto` (hybrid) run.  The smoke fails if jax or any module of the
 JAX package (metagenomics_tpu) was imported.  The last two lines are the
 kernels record and {"ok": true, "device": ...}.  Exits non-zero without
@@ -197,16 +204,23 @@ def setup(torch, window_hash):
     window_hash._load()
     log("window_hash kernels built in %.3f s: %s"
         % (time.time() - t0, os.path.relpath(so, REPO)))
+    from metagenomics_tpu_torch.ops import setup_pack
+    t1 = time.time()
+    pack_so = setup_pack.build_library()
+    setup_pack._load()
+    log("setup_pack kernel built in %.3f s: %s"
+        % (time.time() - t1, os.path.relpath(pack_so, REPO)))
     g.join()
     if built["lib"] is None:
         raise SystemExit("the native replay library failed to build")
     log("native replay library ready in %.3f s" % built["s"])
-    build_log = os.path.join(os.path.dirname(so), "build.log")
-    if os.path.exists(build_log):
-        for line in open(build_log).read().splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill", "smem")):
-                log("  ptxas: %s" % line.strip())
+    for lib in (so, pack_so):
+        build_log = os.path.join(os.path.dirname(lib), "build.log")
+        if os.path.exists(build_log):
+            for line in open(build_log).read().splitlines():
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill", "smem")):
+                    log("  ptxas: %s" % line.strip())
 
 
 def check_equal(torch, got_fn, want_fn, label):
@@ -322,6 +336,7 @@ def kernel_check(torch, window_hash, rng):
             "rows [1:] of %s" % label))
     bad_start_check(torch, window_hash, rng)
     stream_check(torch, window_hash)
+    setup_pack_check(torch, rng)
     emit_check(torch)
     return err
 
@@ -450,15 +465,99 @@ def emit_check(torch):
     log("  emit_verify launches: %d, one a call" % calls)
 
 
-def emit_cells(torch, tmp, card):
-    """emit_verify at the benchmark cells' shapes: each cell's sample (seed
-    CELL_SEED) as its construction loads it, the hybrid's device shard
-    (rows above nine tenths) and mode; the kernel bit-equal to the plain
-    _emit2, both timed in turns on the card alone (device_turns) beside
-    the bound (omegabench.stages.stage_bytes' least bytes at the data
-    sheet's rate), and the share of slots whose rows the kernel compares
-    (from tests/emit_model.py, a numpy model of the kernel, on the host).
-    Returns one record a cell."""
+def pack_equal(torch, pf, w, wp, lmax, label):
+    """The setup_pack kernel vs the plain _setup_pack_torch on the same
+    CUDA words: codes_fwd, flipped and packed2 must be bit-equal."""
+    from metagenomics_tpu_torch.ops import device_overlap as dov
+    from metagenomics_tpu_torch.ops import setup_pack
+    got = setup_pack.setup_pack_cuda(pf, w, wp, lmax)
+    want = dov._setup_pack_torch(pf, w, wp, lmax)
+    torch.cuda.synchronize()
+    same = all(g.dtype == e.dtype and g.shape == e.shape
+               and torch.equal(g, e) for g, e in zip(got, want))
+    log("  %-64s %s" % (label, "bit-equal" if same else "MISMATCH"))
+    if not same:
+        raise SystemExit("setup_pack disagrees with the plain version at %s "
+                         "(equal: %s)" % (label, [torch.equal(g, e)
+                                                  for g, e in zip(got, want)]))
+    return got
+
+
+def setup_pack_check(torch, rng):
+    """Phase 2's setup_pack check: every shape of tests/setup_pack_model.py
+    on packed reads and on arbitrary words; one launch under the sync
+    debug mode "error"; one launch a call."""
+    import setup_pack_model
+    from metagenomics_tpu_torch.ops import setup_pack
+    setup_pack.launches = 0
+    calls = 0
+    for rows, lmax, w in setup_pack_model.SHAPES:
+        wp = setup_pack_model.spill_width(lmax, w)
+        for full in (False, True):
+            pf = torch.from_numpy(setup_pack_model.words(
+                rng, rows, lmax, w, full).astype("int64")).cuda()
+            pack_equal(torch, pf, w, wp, lmax,
+                       "setup_pack [%d, %d] words, lmax %d, wp %d, %s"
+                       % (rows, w, lmax, wp, "arbitrary words" if full
+                          else "mixed lengths"))
+            calls += 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        setup_pack.setup_pack_cuda(pf, w, wp, lmax)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    calls += 1
+    log("  setup_pack under set_sync_debug_mode(\"error\"): no "
+        "synchronising operation")
+    if setup_pack.launches != calls:
+        raise SystemExit("setup_pack launched %d times for %d calls"
+                         % (setup_pack.launches, calls))
+    log("  setup_pack launches: %d, one a call" % calls)
+
+
+def pack_cell(torch, ds, p, name, card):
+    """setup_pack at one cell's shapes: the cell's uploaded words, the
+    kernel bit-equal to the plain version and to the pipeline's packed2,
+    both timed in turns on the card alone beside the bound (the words
+    read once, the three outputs written once, at the data sheet's
+    rate).  Returns the record."""
+    from metagenomics_tpu_torch.ops import device_overlap as dov
+    from metagenomics_tpu_torch.ops import setup_pack
+    cuda = torch.device("cuda", 0)
+    pf = dov._upload_words(dov.pack_codes_host(ds.codes_fwd), cuda)
+    n1, w = pf.shape
+    args = (pf, p.w, p.wp, p.lmax)
+    got = pack_equal(torch, *args, "setup_pack %s: [%d, %d] words, lmax %d, "
+                     "wp %d" % (name, n1, w, p.lmax, p.wp))
+    if not torch.equal(got[2], p.packed2):
+        raise SystemExit("setup_pack's packed2 is not the pipeline's at %s"
+                         % name)
+    ms = device_turns(torch, {
+        "plain": lambda: dov._setup_pack_torch(*args),
+        "kernel": lambda: setup_pack.setup_pack_cuda(*args)}, 20)
+    nbytes = n1 * w * 8 + 2 * n1 * p.lmax + 2 * n1 * p.wp * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log("    [%s] kernel %.6f ms, plain %.6f ms, bound %.6f ms (%d bytes), "
+        "kernel at %.3f%% of the bound" % (
+            card, ms["kernel"], ms["plain"], bound_ms, nbytes,
+            100 * bound_ms / ms["kernel"]))
+    return {"cell": name, "n1": n1, "w": w, "wp": p.wp, "lmax": p.lmax,
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound_ms, "bytes": nbytes}
+
+
+def cell_checks(torch, tmp, card):
+    """emit_verify and setup_pack at the benchmark cells' shapes: each
+    cell's sample (seed CELL_SEED) as its construction loads it, the
+    hybrid's device shard (rows above nine tenths) and mode; emit_verify
+    bit-equal to the plain _emit2, both timed in turns on the card alone
+    (device_turns) beside the bound (omegabench.stages.stage_bytes' least
+    bytes at the data sheet's rate), and the share of slots whose rows
+    the kernel compares (from tests/emit_model.py, a numpy model of the
+    kernel, on the host); setup_pack as pack_cell says.  Returns one
+    record a cell for each kernel."""
     import emit_model
     from omegabench import generator, layout, stages
     from metagenomics_tpu_torch.dataset import Dataset
@@ -466,6 +565,7 @@ def emit_cells(torch, tmp, card):
     cuda = torch.device("cuda", 0)
     spec = layout.benchmark(REPO)
     out = []
+    packs = []
     for w in spec["workloads"]:
         cell = layout.Cell(w["name"], spec)
         cdir = os.path.join(tmp, "cell_" + w["name"])
@@ -515,9 +615,10 @@ def emit_cells(torch, tmp, card):
                 100 * bound_ms / ms["kernel"], compared, p.grand,
                 rec["compared_pct"], time.time() - t0))
         out.append(rec)
+        packs.append(pack_cell(torch, ds, p, w["name"], card))
         del p, args
         torch.cuda.empty_cache()
-    return out
+    return out, packs
 
 
 def hash_bound(n, lmax, l):
@@ -594,10 +695,11 @@ def diff_artifacts(dir_a, prefix_a, dir_b, prefix_b):
 
 
 def reset_counts(window_hash):
-    from metagenomics_tpu_torch.ops import emit_verify
+    from metagenomics_tpu_torch.ops import emit_verify, setup_pack
     window_hash.launches = 0
     window_hash.at_launches = 0
     emit_verify.launches = 0
+    setup_pack.launches = 0
 
 
 def read_counts(window_hash):
@@ -731,16 +833,20 @@ def engine_run(torch, window_hash, args, workdir, engine, card, mesh=None):
     asm, _ = run_cli(args, workdir, engine, mesh)
     torch.cuda.synchronize()
     counts = read_counts(window_hash)
-    from metagenomics_tpu_torch.ops import emit_verify
+    from metagenomics_tpu_torch.ops import emit_verify, setup_pack
     emits = emit_verify.launches
+    packs = setup_pack.launches
     peak = torch.cuda.max_memory_allocated()
     log("  %s engine (ran %s) [%s]: %d unique reads, launches %s, "
-        "emit_verify %d, peak device memory %d bytes"
+        "emit_verify %d, setup_pack %d, peak device memory %d bytes"
         % (engine, asm.engine, card, asm.dataset.number_of_unique_reads,
-           counts, emits, peak))
+           counts, emits, packs, peak))
     if asm.engine in ("device", "hybrid") and emits < 1:
         raise SystemExit("the %s run did not launch emit_verify"
                          % asm.engine)
+    if packs != (1 if asm.engine in ("device", "hybrid") else 0):
+        raise SystemExit("the %s run launched setup_pack %d times"
+                         % (asm.engine, packs))
     for k, v in asm.timings.items():
         log("    %-32s %.6f s" % (k, v))
     want = shards(mesh) if asm.engine == "sharded" else 1
@@ -1154,7 +1260,7 @@ def main():
     setup(torch, window_hash)
     err = kernel_check(torch, window_hash, rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        cells = emit_cells(torch, tmp, card)
+        cells, pack_cells = cell_checks(torch, tmp, card)
         golden_phase(window_hash, tmp)
         records, by_path = real_size_phase(torch, window_hash, tmp, card)
         by_path["sharded"] = sharded_phase(torch, window_hash, tmp, card)
@@ -1185,6 +1291,13 @@ def main():
         "replaces": None, "replaces_ops":
             "metagenomics_tpu/ops/device_overlap.py:445 (_emit2, XLA ops)",
         "max_abs_err": 0, "cells": cells})
+    kernels.append({
+        "name": "setup_pack", "route": "cuda",
+        "source": "metagenomics_tpu_torch/csrc/setup_pack.cu",
+        "replaces": None, "replaces_ops":
+            "metagenomics_tpu/ops/device_overlap.py:329-341 (_setup_kernel's "
+            "rows, XLA ops)",
+        "max_abs_err": 0, "cells": pack_cells})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

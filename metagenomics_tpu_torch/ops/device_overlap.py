@@ -4,8 +4,10 @@ Port of metagenomics_tpu/ops/device_overlap.py (the design notes there hold
 here too).  Every stage is a plain function on tensors that live on one
 explicit torch.device; the pipeline class carries that device.  On a CUDA
 device the window hashes come from the hand-written kernels
-(ops/window_hash.py, csrc/window_hash.cu) and _emit2 from another
-(ops/emit_verify.py, csrc/emit_verify.cu); every other stage is torch ops.
+(ops/window_hash.py, csrc/window_hash.cu), _setup_kernel's row packing
+from another (ops/setup_pack.py, csrc/setup_pack.cu) and _emit2 from a
+third (ops/emit_verify.py, csrc/emit_verify.cu); every other stage is
+torch ops.
 
 Where torch differs from JAX, the port holds the reference's semantics:
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from ..utils.timing import count, span, traced
-from . import emit_verify
+from . import emit_verify, setup_pack
 from .window_hash import MASK32, window_hashes, window_hashes_at
 
 PAD_HASH = 0xFFFFFFFF
@@ -243,16 +245,7 @@ def _setup_kernel(pf, lengths, hash_len, w, wp, lmax):
     flag, one int32 on the device, nonzero where a start was out of range
     (read back, and raised on, by DeviceOverlapPipeline._probe)."""
     dev = pf.device
-    codes_fwd = _unpack_codes(pf, lmax).contiguous()
-    # reverse strand in FLIPPED-PADDED layout: 3 - fwd[:, ::-1] IS the
-    # reverse complement, shifted right so row data occupies columns
-    # [lmax - len, lmax)
-    flipped = (3 - codes_fwd.flip(1)).contiguous()
-    pr = _pack_codes_device(flipped, w)
-    pad = (0, wp - w)
-    packed2 = torch.cat([torch.nn.functional.pad(pf, pad),
-                         torch.nn.functional.pad(pr, pad)], dim=0)
-
+    codes_fwd, flipped, packed2 = _setup_pack(pf, w, wp, lmax)
     hf = window_hashes(codes_fwd, hash_len)
 
     n = hf.shape[0] - 1                      # row 0 is the unused dummy
@@ -275,6 +268,31 @@ def _setup_kernel(pf, lengths, hash_len, w, wp, lmax):
     sk, perm = torch.sort(keys, stable=True)
     sid = ((rid << 2) | orient)[perm]
     return packed2, hf, sk, sid, bad
+
+
+def _setup_pack(pf, w, wp, lmax):
+    """The rows _setup_kernel derives from the forward words pf: the
+    hand-written kernel for CUDA tensors (ops/setup_pack.py), the plain
+    version, _setup_pack_torch, for CPU tensors.  Arguments and return as
+    _setup_pack_torch's."""
+    fn = (setup_pack.setup_pack_cuda if pf.device.type == "cuda"
+          else _setup_pack_torch)
+    return fn(pf, w, wp, lmax)
+
+
+def _setup_pack_torch(pf, w, wp, lmax):
+    """Unpack the [n1, w] forward words pf into codes [n1, lmax] uint8,
+    the reverse strand's codes in the FLIPPED-PADDED layout (3 -
+    fwd[:, ::-1] IS the reverse complement, shifted right so row data
+    occupies columns [lmax - len, lmax)), and pack both strands' words,
+    spill-padded to wp: returns (codes_fwd, flipped, packed2 [2 n1, wp])."""
+    codes_fwd = _unpack_codes(pf, lmax).contiguous()
+    flipped = (3 - codes_fwd.flip(1)).contiguous()
+    pr = _pack_codes_device(flipped, w)
+    pad = (0, wp - w)
+    packed2 = torch.cat([torch.nn.functional.pad(pf, pad),
+                         torch.nn.functional.pad(pr, pad)], dim=0)
+    return codes_fwd, flipped, packed2
 
 
 def _probe_join(hf, lengths, sk, hash_len, sum_block):

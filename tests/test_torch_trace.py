@@ -368,12 +368,12 @@ def mixed_fasta(tmp_path):
     return str(path)
 
 
-def _build_with(engine, se, monkeypatch):
+def _build_with(engine, se, monkeypatch, device="cpu"):
     from metagenomics_tpu_torch.assembler import Assembler
     from metagenomics_tpu_torch.config import AssemblerConfig
     from metagenomics_tpu_torch.dataset import Dataset
     from metagenomics_tpu_torch.graph import OverlapGraph
-    monkeypatch.setenv("MGTPU_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("MGTPU_TORCH_DEVICE", device)
     monkeypatch.setenv("MGTPU_OVERLAP_ENGINE", engine)
     cfg = AssemblerConfig(min_overlap=40, single_end_files=[se])
     ds = Dataset([], [se], 40, log=_quiet)
@@ -470,3 +470,36 @@ def test_hybrid_counts_its_device_shards_containment_hits(
         ds.number_of_unique_reads
     assert _counts(rec, "assembler.contained_reads") == \
         int((ds.super_read_id[1:] != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("engine", ["native", "device", "host", "hybrid"])
+def test_no_setup_pack_count_on_the_cpu(rec, monkeypatch, engine):
+    """A construction on the CPU takes the plain row packing: no
+    kernel.setup_pack, whichever engine built it."""
+    from metagenomics_tpu_torch.ops import setup_pack
+    monkeypatch.setattr(setup_pack, "launches", 0)
+    asm, _ = _build_with(engine, os.path.join(DATA, "se_small.fasta"),
+                         monkeypatch)
+    assert asm.engine == engine
+    assert _counts(rec, "kernel.setup_pack") == 0
+    assert setup_pack.launches == 0
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("engine", ["device", "hybrid"])
+def test_setup_pack_counted_once_a_cuda_construction(rec, monkeypatch, card,
+                                                     engine):
+    """On the card every device and hybrid construction packs its rows
+    with one setup_pack launch, counted once as kernel.setup_pack."""
+    for built in (1, 2):
+        asm, _ = _build_with(engine, os.path.join(DATA, "se_small.fasta"),
+                             monkeypatch, device="cuda")
+        assert asm.engine == engine
+        assert _counts(rec, "kernel.setup_pack") == built
